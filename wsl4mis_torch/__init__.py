@@ -1,0 +1,17 @@
+"""wsl4mis_torch: the PyTorch / CUDA port of wsl4mis_tpu for NVIDIA Hopper.
+
+The JAX package ``wsl4mis_tpu`` beside it is the reference this package is
+checked against; nothing here imports it (or JAX). Tensors are NHWC at the
+public functions, conv weights HWIO, as in the JAX package. Entry points
+take an explicit device and default to ``"cuda"``; the 3x3 convolutions
+and the batch augmentation run in hand-written kernels (``csrc/``) that
+build with nvcc at first use.
+
+This slice covers the 2D U-Net training path: fully_supervised, pce and
+dmpls through ``engine.methods.get_method(name).build(cfg)`` and
+``engine.trainer.Trainer(cfg, bundle).train()``.
+"""
+
+from .utils.device import resolve_device
+
+__all__ = ["resolve_device"]

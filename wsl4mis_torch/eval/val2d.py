@@ -1,0 +1,119 @@
+"""Volume-wise validation (port of ``wsl4mis_tpu/eval/val2d.py``).
+
+Each slice of a volume is order-0 zoomed to the patch size, run through
+the network in eval mode, argmaxed, and zoomed back (order 0) to the
+native resolution; per-class (dice, hd95) against the dense 3D label are
+averaged over the volumes. Slices run in 64-slice chunks on the device;
+metrics stay on the host (scipy EDT).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .metrics import calculate_metric_percase
+
+
+def _zoom_index(n_out: int, n_in: int) -> np.ndarray:
+    """Order-0 zoom source indices: i * (in-1)/(out-1), rounded half up."""
+    return np.clip(
+        np.floor(np.arange(n_out) * ((n_in - 1) / (n_out - 1)) + 0.5)
+        .astype(np.int64), 0, n_in - 1)
+
+
+def _zoom_stack(volume: np.ndarray, out_hw) -> np.ndarray:
+    d, h, w = volume.shape
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return volume
+    return volume[:, _zoom_index(oh, h)[:, None], _zoom_index(ow, w)[None, :]]
+
+
+class VolumePredictor:
+    """Batched slice-stack inference of `model` (returning logits, or a
+    tuple whose first element is the main logits) on `device`.
+
+    Volumes are padded to a multiple of `bucket` slices and concatenated;
+    the stack runs in `chunk`-slice calls. The val set does not change
+    during a run, so its device chunks are cached, keyed on the volumes'
+    identities (the cache holds the volume list, so no id is reused)."""
+
+    def __init__(self, model, patch_size=(256, 256), device="cuda",
+                 bucket: int = 8, chunk: int = 64):
+        self.model = model
+        self.patch_size = tuple(patch_size)
+        self.device = torch.device(device)
+        self.bucket = bucket
+        self.chunk = max(bucket, chunk)
+        self._cache = None
+
+    @torch.no_grad()
+    def _predict(self, x: torch.Tensor) -> np.ndarray:
+        out = self.model(x, train=False)
+        if isinstance(out, (tuple, list)):
+            out = out[0]
+        return out.argmax(-1).to(torch.int8).cpu().numpy()
+
+    def _zoom_back(self, pred: np.ndarray, h: int, w: int) -> np.ndarray:
+        ph, pw = self.patch_size
+        if (h, w) != (ph, pw):
+            pred = pred[:, _zoom_index(h, ph)[:, None],
+                        _zoom_index(w, pw)[None, :]]
+        return pred.astype(np.int32)
+
+    def _stack(self, images):
+        """Zoomed, padded device chunks plus per-volume depths/shapes."""
+        zoomed, depths, shapes = [], [], []
+        for im in images:
+            im = np.asarray(im)
+            z = _zoom_stack(im.astype(np.float32), self.patch_size)
+            pad = (-z.shape[0]) % self.bucket
+            if pad:
+                z = np.concatenate(
+                    [z, np.zeros((pad, *self.patch_size), np.float32)])
+            zoomed.append(z)
+            depths.append((im.shape[0], z.shape[0]))
+            shapes.append(im.shape[1:])
+        big = np.concatenate(zoomed)
+        pad = (-big.shape[0]) % self.chunk
+        if pad:
+            big = np.concatenate(
+                [big, np.zeros((pad, *self.patch_size), np.float32)])
+        chunks = [
+            torch.from_numpy(big[i:i + self.chunk][..., None].copy())
+            .to(self.device)
+            for i in range(0, big.shape[0], self.chunk)
+        ]
+        return chunks, depths, shapes
+
+    def _run(self, chunks, depths, shapes):
+        flat = np.concatenate([self._predict(x) for x in chunks])
+        preds, off = [], 0
+        for (h, w), (d, dp) in zip(shapes, depths):
+            preds.append(self._zoom_back(flat[off:off + d], h, w))
+            off += dp
+        return preds
+
+    def predict_volumes(self, images) -> list[np.ndarray]:
+        """Per-volume (D, H, W) int32 predictions of a cached val set."""
+        key = tuple(id(im) for im in images)
+        if self._cache is None or self._cache[0] != key:
+            self._cache = (key, list(images), *self._stack(images))
+        return self._run(*self._cache[2:])
+
+    def predict_volume(self, image: np.ndarray) -> np.ndarray:
+        """(D, H, W) int32 prediction of one volume (not cached)."""
+        return self._run(*self._stack([image]))[0]
+
+
+def evaluate_fold(predictor: VolumePredictor, volumes,
+                  classes: int) -> np.ndarray:
+    """Mean over volumes of the (classes-1, 2) per-class [dice, hd95]."""
+    preds = predictor.predict_volumes([vol["image"] for vol in volumes])
+    per_volume = [
+        [calculate_metric_percase(pred == i, np.asarray(vol["label"]) == i)
+         for i in range(1, classes)]
+        for pred, vol in zip(preds, volumes)
+    ]
+    return np.asarray(per_volume, np.float64).mean(axis=0)
