@@ -11,16 +11,19 @@ failure:
    kernel from ``wsl4mis_torch/csrc`` (timed).
 2. Kernels: each kernel of the U-Net training path against its plain
    PyTorch version on the card, at the path's shapes (every UNet 3x3 conv
-   at batch 24, 256x256: forward, forward + moments, input gradient,
-   weight gradient, in bf16 and f32; the augmentation on all three
-   branches). Times are CUDA-event medians of 12 launches after 3 warm-up
-   launches, for the kernel, its plain version and, where one PyTorch
-   call computes the same function, that call (library_ms; cuDNN's
+   at 256x256, in bf16 and f32: forward, forward + moments, input
+   gradient and weight gradient at batch 24 and at batch 6, the forward
+   alone at the validation's 64-slice chunk; the augmentation on all
+   three branches at batch 24 and 6). The batch-24 bf16 launches are
+   timed: CUDA-event medians of 12 launches after 3 warm-up launches,
+   for the kernel, its plain version and, where one PyTorch call
+   computes the same function, that call (library_ms; cuDNN's
    conv). bound_ms is max(bytes / 3.35 TB/s, flops / peak) with bf16 at
    989 TFLOP/s and f32 at 67 TFLOP/s (H100 SXM data sheet). Tolerances:
    f32 (TF32 off) 1e-4 of the largest reference magnitude; bf16 outputs 2
    bf16 ulps (ulp floored at 2^-8 of the largest magnitude); moments 1e-4
-   of the largest; weight gradient 1e-3 (f32) / 1e-2 (bf16) in norm;
+   of the largest, against the sums over the kernel's own y; weight
+   gradient 1e-3 (f32) / 1e-2 (bf16) in norm;
    augmentation exact.
 3. The training path at full width (features 16..256, 256x256, bf16) on
    synthetic phantom data made from --seed, through Trainer: fully_supervised
@@ -31,10 +34,11 @@ failure:
    ms/step and slices/s of each step in a synchronized loop of 10 steps,
    and a torch.profiler trace of the same 10 (device kernel time by name,
    the device's busy share).
-4. Reference: a full-width UNet in f32 on a (2, 128, 128) input, its eval
-   logits and train-mode loss and gradients on the card (kernels) against
-   the same model on the CPU (plain versions); see reference_check for
-   the tolerances.
+4. Reference: a full-width UNet in f32, batch 2, at 64x64 and at 128x128
+   on three seeds: its eval logits and train-mode loss and gradients on
+   the card (kernels) against the same model on the CPU (plain
+   versions), beside the CPU's own gradient spread and a known-wrong
+   variant (bf16 kernels); see reference_check for the tolerances.
 
 Output: detail lines, the per-kernel JSON line, the nvidia-smi line, and
 last {"ok": true, "device": {...}}. All records also go to one JSON file,
@@ -44,6 +48,7 @@ build/chip_smoke/chip_smoke.json unless --detail names another.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -53,7 +58,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N, HW = 24, 256
+N, HW = 24, 256  # fully_supervised / pce batch, slice size
+DMPLS_N = 6  # dmpls batch
+EVAL_N = 64  # slices per validation forward (VolumePredictor's chunk)
 FEATURES = (16, 32, 64, 128, 256)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -136,9 +143,11 @@ def expect(ok, what):
 # ---- phase 2: kernels -------------------------------------------------------
 
 
-def check_conv(name, c, o, h, dtype_name, n=N, timed=True, stats_too=True):
-    """Check (and time) fwd, fwd_stats and wgrad at one conv shape, and the
-    dgrad (the fwd kernel on g with rotated weights). Returns records."""
+def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
+    """Check (and, if timed, time) fwd, fwd_stats and wgrad at one conv
+    shape and batch n, and the dgrad (the fwd kernel on g with rotated
+    weights). eval_only checks the fwd alone: the validation forward runs
+    every conv through it. Returns records."""
     import torch
     import torch.nn.functional as F
 
@@ -197,18 +206,26 @@ def check_conv(name, c, o, h, dtype_name, n=N, timed=True, stats_too=True):
     nb_fwd = (px * c + 9 * c * o + o + px * o) * es
     record("conv3x3_fwd", [n, h, h, c, o], y, yp, err, ok, unit, nb_fwd,
            lambda: cv.conv3x3_fwd(x, w, b), lambda: cv.conv3x3_plain(x, w, b),
-           lib_conv(x, w, b))
+           lib_conv(x, w, b), {"role": "eval"} if eval_only else None)
+    if eval_only:
+        return recs
     # forward + moments
-    if stats_too:
-        ys, s1, s2 = cv.conv3x3_fwd_stats(x, w, b)
-        yps, p1, p2 = cv.conv3x3_stats_plain(x, w, b)
-        err, ok, unit = out_err(ys, yps)
-        m_err = max(rel_max(s1, p1), rel_max(s2, p2))
-        record("conv3x3_fwd_stats", [n, h, h, c, o], ys, yps, err,
-               ok and m_err <= 1e-4, unit, nb_fwd + 2 * o * 4,
-               lambda: cv.conv3x3_fwd_stats(x, w, b),
-               lambda: cv.conv3x3_stats_plain(x, w, b), None,
-               {"moments_rel_err": m_err})
+    ys, s1, s2 = cv.conv3x3_fwd_stats(x, w, b)
+    yps, p1, p2 = cv.conv3x3_stats_plain(x, w, b)
+    err, ok, unit = out_err(ys, yps)
+    # The moments are sums over the kernel's own rounded y: held to those
+    # sums. Against the plain moments they also carry y's 1-ulp bf16
+    # differences, which per-channel cancellation in sum y can magnify.
+    yf = ys.float()
+    m_err = max(rel_max(s1, yf.sum((0, 1, 2))),
+                rel_max(s2, (yf * yf).sum((0, 1, 2))))
+    record("conv3x3_fwd_stats", [n, h, h, c, o], ys, yps, err,
+           ok and m_err <= 1e-4, unit, nb_fwd + 2 * o * 4,
+           lambda: cv.conv3x3_fwd_stats(x, w, b),
+           lambda: cv.conv3x3_stats_plain(x, w, b), None,
+           {"moments_rel_err": m_err,
+            "moments_vs_plain_rel_err": max(rel_max(s1, p1),
+                                            rel_max(s2, p2))})
     # input gradient: the forward kernel on g with rotated weights
     if name != "enc0.conv1":  # the stem needs no input gradient
         dx = cv.conv3x3_fwd(g, w_rot)
@@ -239,21 +256,25 @@ def check_conv(name, c, o, h, dtype_name, n=N, timed=True, stats_too=True):
     return recs
 
 
-def check_augment(seed, b=N, h=HW, timed=True):
+def check_augment(seed, b, timed):
+    """The augment kernel against its plain version on a (b, 256, 256)
+    batch. The first rows of the policy are set so that every batch of 3
+    or more holds all three branches; the rest are drawn."""
     import torch
 
     from wsl4mis_torch.data.augment_device import sample_policy
     from wsl4mis_torch.ops import augment as ag
 
-    dev = "cuda"
+    dev, h = "cuda", HW
     gen = torch.Generator(device=dev).manual_seed(seed)
     images = torch.randn((b, h, h), generator=gen, device=dev)
     labels = torch.randint(0, 5, (b, h, h), generator=gen, device=dev,
                            dtype=torch.int32)
     labels[: b // 2] = labels[: b // 2].clamp(max=3)  # half without class 4
-    rows = [(0, k, a, 0) for k in range(4) for a in range(2)]
-    rows += [(1, 0, 0, ang) for ang in (-20, -13, -7, -1, 0, 5, 11, 19)]
-    rows += [(2, 0, 0, 0)] * 2
+    flips = [(0, k, a, 0) for k in range(4) for a in range(2)]
+    turns = [(1, 0, 0, ang) for ang in (-20, -13, -7, -1, 0, 5, 11, 19)]
+    rows = [r for trio in zip(flips, turns, [(2, 0, 0, 0)] * 8)
+            for r in trio][:b]
     policy = sample_policy(gen, labels)
     policy[: len(rows)] = torch.tensor(rows, dtype=torch.int32, device=dev)
     img, lab = ag.augment_batch(images, labels, policy)
@@ -428,70 +449,159 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
 # ---- phase 4: reference on a small input ------------------------------------
 
 
-def reference_check(seed, hw=128):
-    """Full-width f32 UNet on a (2, hw, hw) input: the card (kernels)
-    against the CPU (plain versions) in eval logits, train-mode loss and
-    every conv kernel's gradient.
+REF_INPUTS = ((64, 0), (128, 0), (128, 1), (128, 2))  # (size, seed offset)
+PERTURB_DRAWS = 3
+GRAD_TOL = 5e-2  # between the spread and the wrong variant: PERF.md
 
-    Gradient tolerance 2e-2 in norm. The training gradient is not a smooth
-    function of f32 rounding: a max-pool near-tie or a LeakyReLU input near
-    0 routes a gradient differently under another summation order, and
-    that moves every upstream kernel gradient at once. The record gives the
-    CPU's own spread beside the card's error: its gradients with the batch
-    reversed (cpu_reorder_err) and with the input scaled by 1 + 1e-6 noise
-    (cpu_perturb_err). A wrong dgrad, wgrad or moment fold is off by O(1)."""
+
+def ref_case(seed, hw):
+    """(model, x, labels, generator): a full-width f32 UNet without dropout
+    (train mode makes no random draws) and a (2, hw, hw) input with labels,
+    drawn in that order from one CPU generator seeded with `seed`."""
     import torch
 
     from wsl4mis_torch.models import net_factory
-    from wsl4mis_torch.ops import losses
 
     gen = torch.Generator().manual_seed(seed)
-    no_dropout = (0.0,) * 5  # train mode without random draws
-    cpu = net_factory("unet", 4, dtype=torch.float32, generator=gen,
-                      dropout=no_dropout)
-    gpu = net_factory("unet", 4, dtype=torch.float32, dropout=no_dropout)
-    gpu.load_state_dict(cpu.state_dict())
-    gpu = gpu.cuda()
+    model = net_factory("unet", 4, dtype=torch.float32, generator=gen,
+                        dropout=(0.0,) * 5)
     x = torch.randn((2, hw, hw, 1), generator=gen)
     lab = torch.randint(0, 4, (2, hw, hw), generator=gen, dtype=torch.int32)
-    with torch.no_grad():
-        want = cpu(x, train=False)
-        got = gpu(x.cuda(), train=False).cpu()
-    eval_err = rel_max(got, want)
+    return model, x, lab, gen
 
-    def loss_and_grads(model, xx, ll):
-        model.zero_grad()
-        loss = losses.cross_entropy(model(xx, train=True), ll, ignore_index=4)
-        loss.backward()
-        return loss.item(), {k: p.grad.detach().cpu()
-                             for k, p in model.named_parameters()
-                             if k.endswith("kernel")}
 
-    loss_c, grad_c = loss_and_grads(cpu, x, lab)
-    loss_g, grad_g = loss_and_grads(gpu, x.cuda(), lab.cuda())
-    _, grad_r = loss_and_grads(cpu, x.flip(0), lab.flip(0))
-    noise = torch.randn(x.shape, generator=gen)
-    _, grad_p = loss_and_grads(cpu, x * (1 + 1e-6 * noise), lab)
-    loss_err = abs(loss_g - loss_c) / abs(loss_c)
-    errs = sorted(((rel_norm(grad_g[k], grad_c[k]), k) for k in grad_c),
-                  reverse=True)
-    grad_err = errs[0][0]
-    reorder = max(rel_norm(grad_r[k], grad_c[k]) for k in grad_c)
-    perturb = max(rel_norm(grad_p[k], grad_c[k]) for k in grad_c)
-    rec = {"input": [2, hw, hw, 1], "eval_logits_rel_err": eval_err,
-           "loss_rel_err": loss_err,
-           "max_kernel_grad_rel_norm_err": grad_err,
-           "median_kernel_grad_rel_norm_err": errs[len(errs) // 2][0],
-           "worst_kernel_grads": [[k, e] for e, k in errs[:3]],
-           "cpu_reorder_err": reorder, "cpu_perturb_err": perturb,
-           "logits_finite": bool(torch.isfinite(got).all()),
-           "logits_shape": list(got.shape)}
-    print("reference " + json.dumps(rec), flush=True)
-    expect(rec["logits_finite"] and rec["logits_shape"] == [2, hw, hw, 4],
-           "reference: logits")
-    expect(eval_err <= 1e-3, f"reference: eval logits rel err {eval_err}")
-    expect(loss_err <= 1e-4, f"reference: loss rel err {loss_err}")
-    expect(grad_err <= 2e-2, f"reference: grad rel err {grad_err}")
+def loss_and_grads(model, x, lab):
+    """Train-mode cross-entropy and every conv kernel's gradient (CPU f32)."""
+    from wsl4mis_torch.ops import losses
+
+    model.zero_grad()
+    loss = losses.cross_entropy(model(x, train=True), lab, ignore_index=4)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().float().cpu()
+                         for k, p in model.named_parameters()
+                         if k.endswith("kernel")}
+
+
+def grad_err(got, want):
+    """The largest norm-relative error over the kernel gradients."""
+    return max(rel_norm(got[k], want[k]) for k in want)
+
+
+def cpu_spread(model, x, lab, grads, gen, draws=PERTURB_DRAWS):
+    """The CPU's own gradient spread at one input, against its `grads`:
+    (reversed batch, the largest of `draws` input scalings by 1 + 1e-6
+    noise). Neither changes the function, only f32 rounding."""
+    import torch
+
+    _, g_rev = loss_and_grads(model, x.flip(0), lab.flip(0))
+    perturb = 0.0
+    for _ in range(draws):
+        noise = torch.randn(x.shape, generator=gen)
+        _, g_p = loss_and_grads(model, x * (1 + 1e-6 * noise), lab)
+        perturb = max(perturb, grad_err(g_p, grads))
+    return grad_err(g_rev, grads), perturb
+
+
+@contextlib.contextmanager
+def bf16_kernels():
+    """A known-wrong variant for the gradient check: every conv kernel call
+    rounds its operands to bf16 (and computes and stores in bf16) while the
+    rest of the f32 model stays f32."""
+    import torch
+
+    from wsl4mis_torch.ops import conv3x3 as cv
+
+    names = ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad")
+    saved = {k: getattr(cv, k) for k in names}
+    bf = torch.bfloat16
+
+    def fwd(x, w, b=None):
+        return saved["conv3x3_fwd"](
+            x.to(bf), w.to(bf), None if b is None else b.to(bf)).float()
+
+    def fwd_stats(x, w, b=None):
+        y, s1, s2 = saved["conv3x3_fwd_stats"](
+            x.to(bf), w.to(bf), None if b is None else b.to(bf))
+        return y.float(), s1, s2
+
+    def wgrad(x, g):
+        return saved["conv3x3_wgrad"](x.to(bf), g.to(bf))
+
+    for k, fn in zip(names, (fwd, fwd_stats, wgrad)):
+        setattr(cv, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(cv, k, fn)
+
+
+def reference_check(seed):
+    """Full-width f32 UNet, batch 2, at each of REF_INPUTS: the card
+    (kernels) against the CPU (plain versions) in eval logits, train-mode
+    loss and every conv kernel's gradient.
+
+    The training gradient is not a smooth function of f32 rounding: a
+    max-pool near-tie or a LeakyReLU input near 0 routes a gradient
+    differently under another summation order and moves every upstream
+    kernel gradient at once. So each input also records the CPU's own
+    spread (cpu_spread) and the error of bf16_kernels, a variant that is
+    wrong by design. GRAD_TOL must lie above every spread and the card's
+    error, and below every reading of the wrong variant; a wrong dgrad,
+    wgrad or moment fold is off by O(1)."""
+    import copy
+
+    import torch
+
+    rows = []
+    for hw, offset in REF_INPUTS:
+        cpu, x, lab, gen = ref_case(seed + offset, hw)
+        gpu = copy.deepcopy(cpu).cuda()
+        xg, lg = x.cuda(), lab.cuda()
+        with torch.no_grad():
+            want = cpu(x, train=False)
+            got = gpu(xg, train=False).cpu()
+        loss_c, grad_c = loss_and_grads(cpu, x, lab)
+        loss_g, grad_g = loss_and_grads(gpu, xg, lg)
+        with bf16_kernels():
+            _, grad_w = loss_and_grads(gpu, xg, lg)
+        reorder, perturb = cpu_spread(cpu, x, lab, grad_c, gen)
+        errs = sorted(((rel_norm(grad_g[k], grad_c[k]), k) for k in grad_c),
+                      reverse=True)
+        row = {"input": [2, hw, hw, 1], "seed": seed + offset,
+               "eval_logits_rel_err": rel_max(got, want),
+               "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+               "max_kernel_grad_rel_norm_err": errs[0][0],
+               "median_kernel_grad_rel_norm_err": errs[len(errs) // 2][0],
+               "worst_kernel_grads": [[k, e] for e, k in errs[:3]],
+               "cpu_reorder_err": reorder, "cpu_perturb_err": perturb,
+               "bf16_kernels_err": grad_err(grad_w, grad_c),
+               "logits_finite": bool(torch.isfinite(got).all()),
+               "logits_shape": list(got.shape)}
+        print("reference " + json.dumps(row), flush=True)
+        rows.append(row)
+        expect(row["logits_finite"] and row["logits_shape"] == [2, hw, hw, 4],
+               f"reference {hw}: logits")
+        expect(row["eval_logits_rel_err"] <= 1e-3,
+               f"reference {hw}: eval logits rel err "
+               f"{row['eval_logits_rel_err']}")
+        expect(row["loss_rel_err"] <= 1e-4,
+               f"reference {hw}: loss rel err {row['loss_rel_err']}")
+    rec = {"grad_tol": GRAD_TOL, "inputs": rows,
+           "card_err": max(r["max_kernel_grad_rel_norm_err"] for r in rows),
+           "cpu_spread": max(max(r["cpu_reorder_err"], r["cpu_perturb_err"])
+                             for r in rows),
+           "wrong_variant_err": min(r["bf16_kernels_err"] for r in rows)}
+    print("reference-summary " + json.dumps(
+        {k: v for k, v in rec.items() if k != "inputs"}), flush=True)
+    expect(rec["card_err"] <= GRAD_TOL,
+           f"reference: grad rel err {rec['card_err']} > {GRAD_TOL}")
+    expect(rec["cpu_spread"] <= GRAD_TOL,
+           f"reference: the CPU's own spread {rec['cpu_spread']} exceeds "
+           f"the tolerance {GRAD_TOL}")
+    expect(rec["wrong_variant_err"] > GRAD_TOL,
+           f"reference: bf16 kernels pass the f32 check "
+           f"({rec['wrong_variant_err']} <= {GRAD_TOL})")
     return rec
 
 
@@ -500,7 +610,9 @@ def reference_check(seed, hw=128):
 
 def summarize(recs, launches):
     """Per-kernel JSON entries: times summed over one fully_supervised
-    training step's shapes (bf16, batch 24)."""
+    training step's shapes (bf16, batch 24, the timed records);
+    max_abs_err over every bf16 check of a launch on the training path
+    (batches 24 and 6, and the validation forward)."""
     rows = {
         "conv3x3_fwd": (SRC_CONV, f"{PALLAS_CONV}:329"),
         "conv3x3_fwd_stats": (SRC_CONV, f"{PALLAS_CONV}:340"),
@@ -510,14 +622,15 @@ def summarize(recs, launches):
     }
     out = []
     for name, (source, replaces) in rows.items():
-        mine = [r for r in recs if r["kernel"] == name
+        path = [r for r in recs if r["kernel"] == name
                 and r["dtype"] in ("bfloat16", "float32+int32")
-                and _on_step(r)]
+                and _on_path(r)]
+        mine = [r for r in path if "ms" in r]
         lib = [r["library_ms"] for r in mine]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in path),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
@@ -534,14 +647,14 @@ def _bound_by(recs):
     return "bytes" if 2 * by_bytes >= total else "operations"
 
 
-def _on_step(r):
-    """Whether a kernel-check record is a launch of the UNet train step:
+def _on_path(r):
+    """Whether a kernel-check record is a launch of the training path:
     the stats kernel runs for ConvBlock convs, the fwd kernel for the
-    head and for every dgrad."""
+    head, for every dgrad and for every conv of the validation forward."""
     if r["kernel"] == "conv3x3_fwd_stats":
         return r["conv"] != "head"
     if r["kernel"] == "conv3x3_fwd":
-        return r.get("role") == "dgrad" or r["conv"] == "head"
+        return r.get("role") in ("dgrad", "eval") or r["conv"] == "head"
     return True
 
 
@@ -588,18 +701,23 @@ def main(argv=None):
     recs = []
     for dtype in ("bfloat16", "float32"):
         for name, c, o, h in unet_convs():
-            recs += check_conv(name, c, o, h, dtype, timed=dtype == "bfloat16")
-    recs += check_augment(args.seed)
+            recs += check_conv(name, c, o, h, dtype, N,
+                               timed=dtype == "bfloat16")
+            recs += check_conv(name, c, o, h, dtype, DMPLS_N, timed=False)
+            recs += check_conv(name, c, o, h, dtype, EVAL_N, timed=False,
+                               eval_only=True)
+    recs += check_augment(args.seed, N, timed=True)
+    recs += check_augment(args.seed + 1, DMPLS_N, timed=False)
 
     data = synthetic_slices(480, (HW, HW), seed=args.seed)
     scribbles = synthetic_slices(480, (HW, HW), seed=args.seed,
                                  sup_type="scribble")
     val = synthetic_volumes(2, 10, 216, 256, seed=args.seed + 1)
     runs = [
-        run_method("fully_supervised", "unet", 24, 20, True, data, val,
+        run_method("fully_supervised", "unet", N, 20, True, data, val,
                    args.seed),
-        run_method("pce", "unet", 24, 5, False, scribbles, val, args.seed),
-        run_method("dmpls", "unet_cct", 6, 10, False, scribbles, val,
+        run_method("pce", "unet", N, 5, False, scribbles, val, args.seed),
+        run_method("dmpls", "unet_cct", DMPLS_N, 10, False, scribbles, val,
                    args.seed),
     ]
     fs = runs[0]["losses"]

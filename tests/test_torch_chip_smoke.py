@@ -1,7 +1,9 @@
 """chip_smoke.py off the card (on the CPU): it refuses to run without CUDA,
-and the conv shapes and per-step launch counts it holds the card's run to
-are those of the port's UNet and UNet_CCT training steps."""
+the conv shapes and per-step launch counts it holds the card's run to are
+those of the port's UNet and UNet_CCT training steps, and its reference
+check's known-wrong variant runs every conv kernel in bf16."""
 
+import copy
 import os
 import shutil
 import subprocess
@@ -100,3 +102,32 @@ def test_bound_is_the_larger_side():
             {"bound_ms": 3.0, "bound_by": "operations"}]
     assert chip_smoke._bound_by(recs) == "operations"
     assert chip_smoke._bound_by(recs[:1]) == "bytes"
+
+
+def test_bf16_kernels_variant_rounds_every_conv_and_restores(monkeypatch):
+    """Inside bf16_kernels every conv wrapper of an f32 model's train step
+    computes in bf16 (so its gradients leave the f32 ones); outside, the
+    same step is f32 throughout and the wrappers are the originals."""
+    names = ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad")
+    before = {k: getattr(tconv, k) for k in names}
+    dtypes = []
+
+    def seen(name, fn):
+        def wrapper(x, *args):
+            dtypes.append((name, x.dtype))
+            return fn(x, *args)
+        return wrapper
+
+    plains = ("conv3x3_plain", "conv3x3_stats_plain", "conv3x3_wgrad_plain")
+    for name in plains:
+        monkeypatch.setattr(tconv, name, seen(name, getattr(tconv, name)))
+    model, x, lab, _ = chip_smoke.ref_case(0, 16)
+    loss, want = chip_smoke.loss_and_grads(copy.deepcopy(model), x, lab)
+    assert set(dtypes) == {(name, torch.float32) for name in plains}
+    dtypes.clear()
+    with chip_smoke.bf16_kernels():
+        loss_w, got = chip_smoke.loss_and_grads(copy.deepcopy(model), x, lab)
+    assert set(dtypes) == {(name, torch.bfloat16) for name in plains}
+    assert {k: getattr(tconv, k) for k in names} == before
+    assert np.isfinite(loss_w) and loss_w != loss
+    assert chip_smoke.grad_err(got, want) > 0
