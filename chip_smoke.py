@@ -9,28 +9,39 @@ failure:
 
 1. The card (nvidia-smi name and power limit), and the build of every
    kernel from ``wsl4mis_torch/csrc`` (timed).
-2. Kernels: each kernel of the U-Net training path against its plain
-   PyTorch version on the card, at the path's shapes (every UNet 3x3 conv
+2. Kernels: each kernel of the training paths against its plain
+   PyTorch version on the card, at the paths' shapes (every UNet 3x3 conv
    at 256x256, in bf16 and f32: forward, forward + moments, input
-   gradient and weight gradient at batch 24 and at batch 6, the forward
+   gradient and weight gradient at batch 24, 12 and 6, the forward
    alone at the validation's 64-slice chunk; the augmentation on all
-   three branches at batch 24 and 6). The batch-24 bf16 launches are
-   timed: CUDA-event medians of 12 launches after 3 warm-up launches,
-   for the kernel, its plain version and, where one PyTorch call
+   three branches at batch 24, 12 and 6; the 2x2 max pool at the four
+   encoder levels, forward and backward at batch 24, 12 and 6 and the
+   forward at 64, in bf16 and f32, on a tie-heavy input drawn from five
+   levels and on a random one; the GatedCRF contraction, loss and
+   gradient at (B, 256, 256), radius 5, for B = 6 and 24 with the default
+   descriptor, and a small two-descriptor case). The batch-24 bf16
+   launches (GatedCRF: batch 6, f32, its training batch) are timed:
+   CUDA-event medians of 12 launches after 3 warm-up launches, for the
+   kernel, its plain version and, where one PyTorch call
    computes the same function, that call (library_ms; cuDNN's
-   conv). bound_ms is max(bytes / 3.35 TB/s, flops / peak) with bf16 at
-   989 TFLOP/s and f32 at 67 TFLOP/s (H100 SXM data sheet). Tolerances:
+   conv, F.max_pool2d and its backward on a channels-last view). bound_ms
+   is max(bytes / 3.35 TB/s, flops / peak) with bf16 at 989 TFLOP/s and
+   f32 at 67 TFLOP/s (H100 SXM data sheet). Tolerances:
    f32 (TF32 off) 1e-4 of the largest reference magnitude; bf16 outputs 2
    bf16 ulps (ulp floored at 2^-8 of the largest magnitude); moments 1e-4
    of the largest, against the sums over the kernel's own y; weight
    gradient 1e-3 (f32) / 1e-2 (bf16) in norm;
-   augmentation exact.
+   augmentation and max pool exact; GatedCRF: see check_gated_crf.
 3. The training path at full width (features 16..256, 256x256, bf16) on
    synthetic phantom data made from --seed, through Trainer: fully_supervised
-   (UNet, batch 24, 20 steps, one validation), pce (5 steps) and dmpls
-   (UNet_CCT, batch 6, 10 steps). Launch counters are zeroed before each
+   (UNet, batch 24, 20 steps, one validation), pce (5 steps), dmpls
+   (UNet_CCT, batch 6, 10 steps), pce_gatedcrf (UNet, batch 6, 10 steps)
+   and 3 untimed steps each of pce_tv, pce_entropy_mini,
+   pce_intensity_variance (batch 24) and pce_mumford_shah (batch 12).
+   Launch counters are zeroed before each
    run and must show every kernel at its per-step count; losses must be
-   finite and fall for fully_supervised; checkpoints must exist. Then
+   finite and fall for fully_supervised; checkpoints must exist. Then,
+   for the timed runs,
    ms/step and slices/s of each step in a synchronized loop of 10 steps,
    and a torch.profiler trace of the same 10 (device kernel time by name,
    the device's busy share).
@@ -59,13 +70,23 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N, HW = 24, 256  # fully_supervised / pce batch, slice size
-DMPLS_N = 6  # dmpls batch
+DMPLS_N = 6  # dmpls and pce_gatedcrf batch
+MS_N = 12  # pce_mumford_shah batch
 EVAL_N = 64  # slices per validation forward (VolumePredictor's chunk)
 FEATURES = (16, 32, 64, 128, 256)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SRC_CONV = "wsl4mis_torch/csrc/conv3x3.cu"
 PALLAS_CONV = "wsl4mis_tpu/ops/pallas/banded_conv_pallas.py"
+SRC_POOL = "wsl4mis_torch/csrc/maxpool.cu"
+PALLAS_POOL = "wsl4mis_tpu/ops/pallas/maxpool_pallas.py"
+GCRF_RADIUS = 5
+# device function names of the port's kernels, as a trace shows them
+PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
+                "augment_kernel", "maxpool_fwd_kernel", "maxpool_bwd_kernel",
+                "gated_crf_kernel")
+TWO_DESC = ({"weight": 0.9, "xy": 6.0, "rgb": 0.1},
+            {"weight": 0.1, "xy": 6.0})
 
 
 def unet_convs():
@@ -82,6 +103,11 @@ def unet_convs():
         out += [(f"up{i}.conv1", 2 * c, c, h), (f"up{i}.conv2", c, c, h)]
     out.append(("head", f[0], 4, HW))
     return out
+
+
+def unet_pools():
+    """(name, C, H) of the input of the UNet encoder's four 2x2 pools."""
+    return [(f"pool{i}", FEATURES[i], HW >> i) for i in range(4)]
 
 
 def time_ms(fn, reps=12, warmup=3):
@@ -296,34 +322,182 @@ def check_augment(seed, b, timed):
     return [rec]
 
 
+def check_pool(name, c, h, dtype_name, n, ties, timed, backward=True,
+               dev="cuda"):
+    """The max pool's forward (and backward) against the plain version at
+    one encoder level and batch n: every element must be equal. `ties`
+    draws the input from five levels (zeros among them), so that most
+    windows tie and the first-max rule decides dx. Returns records."""
+    import torch
+    import torch.nn.functional as F
+
+    from wsl4mis_torch.ops import maxpool as mp
+
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(c * 31 + h + n + ties)
+    if ties:
+        x = (torch.randint(-2, 3, (n, h, h, c), generator=gen, device=dev)
+             * 0.5).to(dt)
+    else:
+        x = torch.randn((n, h, h, c), generator=gen, device=dev).to(dt)
+    g = torch.randn((n, h // 2, h // 2, c), generator=gen, device=dev).to(dt)
+    es = x.element_size()
+    recs = []
+
+    def record(kernel, got, want, nbytes, fn_k, fn_p, fn_l):
+        mismatched = int((got != want).sum())
+        rec = {"kernel": kernel, "pool": name, "dtype": dtype_name,
+               "shape": [n, h, h, c], "ties": ties,
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "mismatched": mismatched, "ok": mismatched == 0,
+               **bound(nbytes, 3.0 * got.numel(), dtype_name)}
+        if timed:
+            rec["ms"] = time_ms(fn_k)
+            rec["plain_ms"] = time_ms(fn_p)
+            rec["library_ms"] = time_ms(fn_l)
+        recs.append(rec)
+        print("kernel-check " + json.dumps(rec), flush=True)
+        expect(rec["ok"], f"{kernel} {name} {dtype_name} n={n}: "
+                          f"{mismatched} elements differ from the plain "
+                          "version")
+
+    xv = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+    record("maxpool_fwd", mp.max_pool_2x2_fwd(x),
+           mp.max_pool_2x2_fwd_plain(x), x.numel() * es * 5 // 4,
+           lambda: mp.max_pool_2x2_fwd(x),
+           lambda: mp.max_pool_2x2_fwd_plain(x),
+           lambda: F.max_pool2d(xv, 2, 2))
+    if not backward:
+        return recs
+    gv = g.permute(0, 3, 1, 2)
+    _, idx = torch.ops.aten.max_pool2d_with_indices(xv, [2, 2], [2, 2])
+    record("maxpool_bwd", mp.max_pool_2x2_bwd(x, g),
+           mp.max_pool_2x2_bwd_plain(x, g), x.numel() * es * 9 // 4,
+           lambda: mp.max_pool_2x2_bwd(x, g),
+           lambda: mp.max_pool_2x2_bwd_plain(x, g),
+           lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+               gv, xv, [2, 2], [2, 2], [0, 0], [1, 1], False, idx))
+    return recs
+
+
+def gcrf_work(b, h, w, c, radius, nf_splits):
+    """(bytes, f32 operations) of one GatedCRF contraction: probs and feats
+    read once, prod written once; per pixel and non-centre offset, per
+    descriptor 3 operations per feature (subtract, square, add) and 4 for
+    the -0.5 scale, the exp and the weighted add, then a multiply-add per
+    class for prod and one add for sum k. The work does not depend on the
+    data (outside offsets are computed, not skipped)."""
+    f = sum(nf_splits)
+    offsets = (2 * radius + 1) ** 2 - 1
+    per_offset = sum(3 * nf + 4 for nf in nf_splits) + 2 * c + 1
+    return b * h * w * (2 * c + f) * 4, float(b * h * w * offsets * per_offset)
+
+
+def gcrf_inputs(b, h, w, seed, dev="cuda"):
+    """Softmax probabilities (b,h,w,4) of sharp random logits and an image
+    (b,h,w,1) in [0, 1] that is piecewise constant on 8x8 cells plus 0.02
+    noise, so that the rgb kernel (sigma 0.1) is neither all 0 nor all 1."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    probs = torch.softmax(
+        2.0 * torch.randn((b, h, w, 4), generator=gen, device=dev), -1)
+    cells = torch.rand((b, -(-h // 8), -(-w // 8)), generator=gen, device=dev)
+    image = cells.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :h, :w]
+    image = image + 0.02 * torch.randn((b, h, w), generator=gen, device=dev)
+    return probs, image.clamp(0, 1)[..., None].contiguous()
+
+
+def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
+                    dev="cuda"):
+    """The GatedCRF contraction, loss and gradient against the plain loop.
+    role "path" marks the shape the pce_gatedcrf step launches.
+
+    Tolerances, all f32 against f32 with the pixel sums folded in f64 on
+    both sides: prod (a sum of (2r+1)^2-1 terms of k p <= sum(w) per pixel,
+    in another order, with expf against torch.exp) within 1e-5 of its
+    largest magnitude; per-image sum k within 1e-6 relative; the loss
+    within 1e-5 of sum k / (B H W), the scale of the two sums whose
+    difference it is; grad_probs (the Function's -2 g prod / (B H W)
+    against autograd through the plain loop) within 1e-5 of its largest
+    magnitude."""
+    import torch
+
+    from wsl4mis_torch.ops import gated_crf as gc
+
+    probs, image = gcrf_inputs(b, h, w, seed, dev)
+    feats, weights, splits = gc.stacked_features(image, kernels_desc, h, w)
+    prod, ksum = gc.gated_crf_products(probs, feats, radius, weights, splits)
+    prod_p, ksum_p = gc.gated_crf_products_plain(probs, feats, radius,
+                                                 weights, splits)
+    p1 = probs.clone().requires_grad_()
+    loss = gc.gated_crf_loss(p1, image, kernels_desc, radius)
+    loss.backward()
+    p2 = probs.clone().requires_grad_()
+    loss_p = gc.gated_crf_loss_plain(p2, image, kernels_desc, radius)
+    loss_p.backward()
+    loss, loss_p = float(loss.detach()), float(loss_p.detach())
+    scale = float(ksum_p.sum()) / (b * h * w)
+    nbytes, ops = gcrf_work(b, h, w, probs.shape[-1], radius, splits)
+    rec = {"kernel": "gated_crf", "dtype": "float32",
+           "shape": [b, h, w, probs.shape[-1], feats.shape[-1]],
+           "radius": radius, "descriptors": len(weights), "role": role,
+           "max_abs_err": float((prod - prod_p).abs().max()),
+           "prod_rel_err": rel_max(prod, prod_p),
+           "ksum_rel_err": float(((ksum - ksum_p).abs() / ksum_p).max()),
+           "loss": loss, "plain_loss": loss_p,
+           "loss_err_over_ksum_term": abs(loss - loss_p) / scale,
+           "grad_rel_err": rel_max(p1.grad, p2.grad),
+           "finite": bool(torch.isfinite(prod).all()
+                          and torch.isfinite(p1.grad).all()),
+           **bound(nbytes, ops, "float32")}
+    rec["ok"] = (rec["finite"] and rec["prod_rel_err"] <= 1e-5
+                 and rec["ksum_rel_err"] <= 1e-6
+                 and rec["loss_err_over_ksum_term"] <= 1e-5
+                 and rec["grad_rel_err"] <= 1e-5)
+    if timed:
+        rec["ms"] = time_ms(lambda: gc.gated_crf_products(
+            probs, feats, radius, weights, splits))
+        rec["plain_ms"] = time_ms(lambda: gc.gated_crf_products_plain(
+            probs, feats, radius, weights, splits), reps=3, warmup=1)
+        rec["library_ms"] = None
+    print("kernel-check " + json.dumps(rec), flush=True)
+    expect(rec["ok"], f"gated_crf {rec['shape']}: {rec}")
+    return [rec]
+
+
 # ---- phase 3: the training path ---------------------------------------------
 
 
-def launch_counts():
-    from wsl4mis_torch.ops import augment as ag
-    from wsl4mis_torch.ops import conv3x3 as cv
+def _counters():
+    """The launch counters of every kernel wrapper of the port."""
+    from wsl4mis_torch.ops import augment, conv3x3, gated_crf, maxpool
 
-    return {**cv.launches, **ag.launches}
+    return [m.launches for m in (conv3x3, augment, maxpool, gated_crf)]
+
+
+def launch_counts():
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def reset_counts():
-    from wsl4mis_torch.ops import augment as ag
-    from wsl4mis_torch.ops import conv3x3 as cv
-
-    for d in (cv.launches, ag.launches):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
 
-def per_step_counts(model_name):
+def per_step_counts(model_name, method=None):
     """Expected launches per training step: every ConvBlock conv is a stats
     launch, each head a fwd launch, every conv but the stem a dgrad (fwd)
-    launch, every conv a wgrad launch, and one augment launch."""
+    launch, every conv a wgrad launch, one augment launch, the encoder's
+    four pools forward and backward, and one GatedCRF contraction for
+    pce_gatedcrf (its backward is an elementwise scale, no launch)."""
     decoders = 2 if model_name == "unet_cct" else 1
     blocks = 10 + 8 * decoders
     convs = blocks + decoders
     return {"conv3x3_fwd_stats": blocks, "conv3x3_fwd": decoders + convs - 1,
-            "conv3x3_wgrad": convs, "augment": 1}
+            "conv3x3_wgrad": convs, "augment": 1, "maxpool_fwd": 4,
+            "maxpool_bwd": 4, "gated_crf": int(method == "pce_gatedcrf")}
 
 
 def run_method(method, model_name, batch, steps, validate, data, val,
@@ -337,7 +511,6 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         MethodBundle,
         index_batches,
         make_model_and_state,
-        split_rngs,
         stage_dataset,
     )
     from wsl4mis_torch.engine.trainer import Trainer
@@ -376,11 +549,13 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     wall = time.perf_counter() - t0
     counts = launch_counts()
 
-    per = per_step_counts(model_name)
+    per = per_step_counts(model_name, method)
     expected = {k: v * steps for k, v in per.items()}
-    if validate:  # eval forwards: every conv is a fwd launch per chunk
+    if validate:  # eval forwards: every conv and pool once per chunk
         depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in val)
-        expected["conv3x3_fwd"] += per["conv3x3_wgrad"] * -(-depth // 64)
+        chunks = -(-depth // EVAL_N)
+        expected["conv3x3_fwd"] += per["conv3x3_wgrad"] * chunks
+        expected["maxpool_fwd"] += per["maxpool_fwd"] * chunks
     loss_vals = [float(v) for v in losses]
     rec = {"method": method, "model": model_name, "batch": batch,
            "steps": steps, "launches": counts, "expected": expected,
@@ -396,29 +571,40 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         expect(os.path.isfile(os.path.join(cfg.snapshot_path, name)),
                f"{method}: checkpoint {name} missing")
 
-    # steady-state step time: synchronized loop over the same step
-    it = index_batches(cfg, data)
-    batches = [next(it) for _ in range(time_steps)]
-    rngs = [split_rngs(seed, 1000 + i, "cuda") for i in range(time_steps)]
-    step_fn(state, batches[0], rngs[0], bundle.aux)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for bt, rg in zip(batches, rngs):
-        step_fn(state, bt, rg, bundle.aux)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / time_steps
-    rec.update({"ms_per_step": ms, "slices_per_s": 1e3 * batch / ms,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    rec["profile"] = profile_steps(step_fn, state, batches, rngs,
-                                   bundle.aux)
+    if time_steps:
+        rec.update(time_step(step_fn, state, bundle.aux, cfg, data, seed,
+                             time_steps))
     print("slice-run " + json.dumps(rec), flush=True)
     return rec
 
 
+def time_step(step_fn, state, aux, cfg, data, seed, time_steps):
+    """Steady-state step time (a synchronized loop over `time_steps` steps
+    after one warm step), peak memory, and a profile of the same steps."""
+    import torch
+
+    from wsl4mis_torch.engine.methods.common import index_batches, split_rngs
+
+    it = index_batches(cfg, data)
+    batches = [next(it) for _ in range(time_steps)]
+    rngs = [split_rngs(seed, 1000 + i, "cuda") for i in range(time_steps)]
+    step_fn(state, batches[0], rngs[0], aux)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt, rg in zip(batches, rngs):
+        step_fn(state, bt, rg, aux)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / time_steps
+    return {"ms_per_step": ms, "slices_per_s": 1e3 * cfg.batch_size / ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": profile_steps(step_fn, state, batches, rngs, aux)}
+
+
 def profile_steps(step_fn, state, batches, rngs, aux, top=12):
     """torch.profiler over the given steps: device kernel time by name
-    (the top ones), the device's busy share of the window, and the
-    window's ms/step (the profiler slows the host side)."""
+    (the top ones, and each of the port's own kernels), the device's busy
+    share of the window, and the window's ms/step (the profiler slows the
+    host side)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,7 +625,13 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
     expect(busy_us > 0, "profile: no device time recorded")
     steps = len(batches)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
+    own = {}
+    for name, us in by_name.items():
+        for kernel in PORT_KERNELS:
+            if kernel in name:
+                own[kernel] = own.get(kernel, 0.0) + 1e-3 * us / steps
     return {"ms_per_step": 1e-3 * wall_us / steps,
+            "port_kernels_ms_per_step": own,
             "device_busy_ms_per_step": 1e-3 * busy_us / steps,
             "device_busy_share": busy_us / wall_us,
             "top_kernels_ms_per_step": [[name[:80], 1e-3 * us / steps]
@@ -610,21 +802,27 @@ def reference_check(seed):
 
 def summarize(recs, launches):
     """Per-kernel JSON entries: times summed over one fully_supervised
-    training step's shapes (bf16, batch 24, the timed records);
-    max_abs_err over every bf16 check of a launch on the training path
-    (batches 24 and 6, and the validation forward)."""
+    training step's shapes (bf16, batch 24, the timed records; for
+    gated_crf one pce_gatedcrf step's launch, f32, batch 6); max_abs_err
+    over every check, in the path's dtype, of a launch on a training path
+    (batches 24, 12 and 6, and the validation forward)."""
     rows = {
-        "conv3x3_fwd": (SRC_CONV, f"{PALLAS_CONV}:329"),
-        "conv3x3_fwd_stats": (SRC_CONV, f"{PALLAS_CONV}:340"),
-        "conv3x3_wgrad": (SRC_CONV, f"{PALLAS_CONV}:377"),
+        "conv3x3_fwd": (SRC_CONV, f"{PALLAS_CONV}:329", "bfloat16"),
+        "conv3x3_fwd_stats": (SRC_CONV, f"{PALLAS_CONV}:340", "bfloat16"),
+        "conv3x3_wgrad": (SRC_CONV, f"{PALLAS_CONV}:377", "bfloat16"),
         "augment": ("wsl4mis_torch/csrc/augment.cu",
-                    "wsl4mis_tpu/ops/pallas/augment_pallas.py:137"),
+                    "wsl4mis_tpu/ops/pallas/augment_pallas.py:137",
+                    "float32+int32"),
+        "gated_crf": ("wsl4mis_torch/csrc/gated_crf.cu",
+                      "wsl4mis_tpu/ops/pallas/gated_crf_pallas.py:37",
+                      "float32"),
+        "maxpool_fwd": (SRC_POOL, f"{PALLAS_POOL}:70", "bfloat16"),
+        "maxpool_bwd": (SRC_POOL, f"{PALLAS_POOL}:92", "bfloat16"),
     }
     out = []
-    for name, (source, replaces) in rows.items():
+    for name, (source, replaces, dtype) in rows.items():
         path = [r for r in recs if r["kernel"] == name
-                and r["dtype"] in ("bfloat16", "float32+int32")
-                and _on_path(r)]
+                and r["dtype"] == dtype and _on_path(r)]
         mine = [r for r in path if "ms" in r]
         lib = [r["library_ms"] for r in mine]
         out.append({
@@ -655,6 +853,8 @@ def _on_path(r):
         return r["conv"] != "head"
     if r["kernel"] == "conv3x3_fwd":
         return r.get("role") in ("dgrad", "eval") or r["conv"] == "head"
+    if r["kernel"] == "gated_crf":
+        return r["role"] == "path"
     return True
 
 
@@ -676,6 +876,7 @@ def main(argv=None):
 
     from wsl4mis_torch.data import synthetic_slices, synthetic_volumes
     from wsl4mis_torch.ops import _build
+    from wsl4mis_torch.ops.gated_crf import DEFAULT_KERNELS_DESC
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -703,11 +904,31 @@ def main(argv=None):
         for name, c, o, h in unet_convs():
             recs += check_conv(name, c, o, h, dtype, N,
                                timed=dtype == "bfloat16")
-            recs += check_conv(name, c, o, h, dtype, DMPLS_N, timed=False)
+            for n in (MS_N, DMPLS_N):
+                recs += check_conv(name, c, o, h, dtype, n, timed=False)
             recs += check_conv(name, c, o, h, dtype, EVAL_N, timed=False,
                                eval_only=True)
+        for name, c, h in unet_pools():
+            for ties in (False, True):
+                recs += check_pool(name, c, h, dtype, N, ties,
+                                   timed=dtype == "bfloat16" and not ties)
+                for n in (MS_N, DMPLS_N):
+                    recs += check_pool(name, c, h, dtype, n, ties,
+                                       timed=False)
+                recs += check_pool(name, c, h, dtype, EVAL_N, ties,
+                                   timed=False, backward=False)
     recs += check_augment(args.seed, N, timed=True)
     recs += check_augment(args.seed + 1, DMPLS_N, timed=False)
+    recs += check_augment(args.seed + 2, MS_N, timed=False)
+    desc = DEFAULT_KERNELS_DESC
+    recs += check_gated_crf(DMPLS_N, HW, HW, GCRF_RADIUS, desc, True,
+                            args.seed, "path")
+    recs += check_gated_crf(N, HW, HW, GCRF_RADIUS, desc, True,
+                            args.seed + 1, "batch 24")
+    # a ragged tile edge (40 x 72 against 16 x 32 tiles) on the general
+    # descriptor-list instantiation
+    recs += check_gated_crf(2, 40, 72, 3, TWO_DESC, False, args.seed + 2,
+                            "two descriptors")
 
     data = synthetic_slices(480, (HW, HW), seed=args.seed)
     scribbles = synthetic_slices(480, (HW, HW), seed=args.seed,
@@ -719,7 +940,14 @@ def main(argv=None):
         run_method("pce", "unet", N, 5, False, scribbles, val, args.seed),
         run_method("dmpls", "unet_cct", DMPLS_N, 10, False, scribbles, val,
                    args.seed),
+        run_method("pce_gatedcrf", "unet", DMPLS_N, 10, False, scribbles,
+                   val, args.seed),
     ]
+    for method, batch in (("pce_tv", N), ("pce_entropy_mini", N),
+                          ("pce_mumford_shah", MS_N),
+                          ("pce_intensity_variance", N)):
+        runs.append(run_method(method, "unet", batch, 3, False, scribbles,
+                               val, args.seed, time_steps=0))
     fs = runs[0]["losses"]
     expect(np.mean(fs[-5:]) < np.mean(fs[:5]),
            f"fully_supervised loss did not fall: {fs}")
@@ -727,6 +955,8 @@ def main(argv=None):
 
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
+    idle = sorted(k for k, v in launches.items() if v == 0)
+    expect(not idle, f"kernels never launched on a training path: {idle}")
     kernels = summarize(recs, launches)
     detail = {"card": card, "torch": torch.__version__,
               "build_s": build_s, "ptxas": ptxas, "checks": recs,

@@ -1,7 +1,9 @@
 """chip_smoke.py off the card (on the CPU): it refuses to run without CUDA,
-the conv shapes and per-step launch counts it holds the card's run to are
-those of the port's UNet and UNet_CCT training steps, and its reference
-check's known-wrong variant runs every conv kernel in bf16."""
+the conv and pool shapes and per-step launch counts it holds the card's run
+to are those of the port's UNet and UNet_CCT training steps, its pool and
+GatedCRF checks run (plain against plain) at tiny sizes, its kernel summary
+lists every kernel with every key, and its reference check's known-wrong
+variant runs every conv kernel in bf16."""
 
 import copy
 import os
@@ -25,6 +27,8 @@ from wsl4mis_torch.models import net_factory  # noqa: E402
 from wsl4mis_torch.models.unet import Conv3x3  # noqa: E402
 from wsl4mis_torch.ops import augment as taug  # noqa: E402
 from wsl4mis_torch.ops import conv3x3 as tconv  # noqa: E402
+from wsl4mis_torch.ops import gated_crf as tgcrf  # noqa: E402
+from wsl4mis_torch.ops import maxpool as tpool  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,13 +59,29 @@ def test_conv_shapes_are_the_unets():
     assert sizes["enc4.conv2"] == chip_smoke.HW // 16
 
 
-@pytest.mark.parametrize("method,model_name", [("fully_supervised", "unet"),
-                                               ("dmpls", "unet_cct")])
+def test_pool_shapes_are_the_unets(monkeypatch):
+    """unet_pools() lists the full-width encoder's four pool inputs: their
+    channels, and their sizes scaled from a 32x32 forward to 256x256."""
+    seen = []
+    fwd = tpool.max_pool_2x2_fwd
+    monkeypatch.setattr(tpool, "max_pool_2x2_fwd",
+                        lambda x: seen.append(tuple(x.shape)) or fwd(x))
+    model = net_factory("unet", 4, dtype=torch.float32)
+    with torch.no_grad():
+        model(torch.zeros((1, 32, 32, 1)), train=False)
+    scale = chip_smoke.HW // 32
+    assert [(c, h * scale) for _, h, _, c in seen] == \
+        [(c, h) for _, c, h in chip_smoke.unet_pools()]
+
+
+@pytest.mark.parametrize("method,model_name", [
+    ("fully_supervised", "unet"), ("dmpls", "unet_cct"),
+    ("pce_gatedcrf", "unet"), ("pce_tv", "unet")])
 def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
     """One train step on the CPU, counting the calls that reach each
     wrapper (on the card each is one launch): chip_smoke's expected
     per-step counts."""
-    calls = {k: 0 for k in chip_smoke.per_step_counts(model_name)}
+    calls = {k: 0 for k in chip_smoke.per_step_counts(model_name, method)}
 
     def counted(name, fn):
         def wrapper(*args):
@@ -73,6 +93,11 @@ def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
         monkeypatch.setattr(tconv, name, counted(name, getattr(tconv, name)))
     monkeypatch.setattr(augment_device._augment, "augment_batch",
                         counted("augment", taug.augment_batch))
+    for name in ("maxpool_fwd", "maxpool_bwd"):
+        fn = "max_pool_2x2_" + name[-3:]
+        monkeypatch.setattr(tpool, fn, counted(name, getattr(tpool, fn)))
+    monkeypatch.setattr(tgcrf, "gated_crf_products",
+                        counted("gated_crf", tgcrf.gated_crf_products))
     cfg = TrainConfig(method=method, device="cpu", batch_size=2,
                       compute_dtype="float32")
     model = net_factory(model_name, 4, dtype=torch.float32,
@@ -87,7 +112,93 @@ def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
     get_method(method).make_step(cfg)(
         state, {"index": np.array([0, 2], np.int32)},
         split_rngs(0, 0, "cpu"), staged)
-    assert calls == chip_smoke.per_step_counts(model_name)
+    assert calls == chip_smoke.per_step_counts(model_name, method)
+    assert calls["gated_crf"] == (method == "pce_gatedcrf")
+    assert calls["maxpool_fwd"] == calls["maxpool_bwd"] == 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ties", [False, True])
+def test_pool_check_runs_on_the_cpu(dtype, ties):
+    """check_pool at a tiny size on the CPU (the wrapper's plain route
+    against the plain version): two exact records with the byte bound of
+    x + y, and of x + g + dx."""
+    recs = chip_smoke.check_pool("pool0", 8, 8, dtype, 2, ties, timed=False,
+                                 dev="cpu")
+    assert [r["kernel"] for r in recs] == ["maxpool_fwd", "maxpool_bwd"]
+    es = 2 if dtype == "bfloat16" else 4
+    x_bytes = 2 * 8 * 8 * 8 * es
+    for r, nbytes in zip(recs, (x_bytes * 5 // 4, x_bytes * 9 // 4)):
+        assert r["ok"] and r["mismatched"] == 0 and r["max_abs_err"] == 0.0
+        assert r["bound_by"] == "bytes"
+        assert r["bound_ms"] == pytest.approx(
+            1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S)
+    only_fwd = chip_smoke.check_pool("pool0", 8, 8, dtype, 2, ties,
+                                     timed=False, backward=False, dev="cpu")
+    assert [r["kernel"] for r in only_fwd] == ["maxpool_fwd"]
+
+
+def test_gated_crf_check_runs_on_the_cpu_and_counts_its_work():
+    """check_gated_crf at a tiny size on the CPU, default and two
+    descriptors, and gcrf_work at the training shape: 22 operations per
+    pixel-offset over 120 offsets, operations-bound."""
+    for desc in (tgcrf.DEFAULT_KERNELS_DESC, chip_smoke.TWO_DESC):
+        (rec,) = chip_smoke.check_gated_crf(2, 10, 12, 2, desc, False, 0,
+                                            "path", dev="cpu")
+        assert rec["ok"] and rec["descriptors"] == len(desc)
+        assert rec["loss"] > 0 and rec["grad_rel_err"] <= 1e-5
+    nbytes, ops = chip_smoke.gcrf_work(6, 256, 256, 4, 5, [3])
+    assert nbytes == 6 * 256 * 256 * 11 * 4
+    assert ops == 6 * 256 * 256 * 120 * 22
+    assert chip_smoke.bound(nbytes, ops, "float32")["bound_by"] == \
+        "operations"
+    probs, image = chip_smoke.gcrf_inputs(2, 10, 12, 0, dev="cpu")
+    assert tuple(image.shape) == (2, 10, 12, 1)
+    torch.testing.assert_close(probs.sum(-1), torch.ones((2, 10, 12)))
+
+
+def test_summary_lists_every_kernel_with_every_key():
+    """summarize() gives one entry per kernel wrapper of the port, each
+    with the keys of the kernels line; records off the training path (a
+    stats launch of the head, GatedCRF at another batch) stay out."""
+    timing = {"ms": 2.0, "plain_ms": 3.0, "library_ms": 1.0,
+              "bound_ms": 0.5, "bound_by": "bytes"}
+
+    def rec(kernel, dtype, err, **kw):
+        return {"kernel": kernel, "dtype": dtype, "max_abs_err": err,
+                **timing, **kw}
+
+    recs = [
+        rec("conv3x3_fwd", "bfloat16", 0.1, conv="head"),
+        rec("conv3x3_fwd", "bfloat16", 0.9, conv="enc0.conv2"),  # off path
+        rec("conv3x3_fwd_stats", "bfloat16", 0.2, conv="enc0.conv1"),
+        rec("conv3x3_fwd_stats", "bfloat16", 0.9, conv="head"),  # off path
+        rec("conv3x3_wgrad", "bfloat16", 0.3, conv="head"),
+        rec("augment", "float32+int32", 0.0, library_ms=None),
+        rec("gated_crf", "float32", 0.4, role="path", library_ms=None,
+            bound_by="operations"),
+        rec("gated_crf", "float32", 0.9, role="batch 24"),  # off path
+        rec("maxpool_fwd", "bfloat16", 0.0, pool="pool0"),
+        rec("maxpool_fwd", "float32", 0.9, pool="pool0"),  # not the path's
+        rec("maxpool_bwd", "bfloat16", 0.0, pool="pool0"),
+    ]
+    launches = {k: 0 for d in chip_smoke._counters() for k in d}
+    rows = chip_smoke.summarize(recs, launches)
+    assert sorted(r["name"] for r in rows) == sorted(launches)
+    assert len(rows) == 7
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for r in rows:
+        assert set(r) == keys and r["route"] == "cuda"
+        assert os.path.isfile(os.path.join(REPO, r["source"]))
+        path, line = r["replaces"].split(":")
+        with open(os.path.join(REPO, path)) as f:
+            assert "_kernel(" in f.readlines()[int(line) - 1]
+        assert r["max_abs_err"] < 0.9 and r["ms"] == 2.0
+    by_name = {r["name"]: r for r in rows}
+    assert by_name["gated_crf"]["library_ms"] is None
+    assert by_name["gated_crf"]["bound_by"] == "operations"
+    assert by_name["maxpool_bwd"]["library_ms"] == 1.0
 
 
 def test_bound_is_the_larger_side():

@@ -95,7 +95,10 @@ def _cfg(acdc_tree, snap, **kw):
 
 
 @pytest.mark.parametrize("method,sup", [("fully_supervised", "label"),
-                                        ("dmpls", "scribble")])
+                                        ("dmpls", "scribble"),
+                                        ("pce_gatedcrf", "scribble"),
+                                        ("pce_intensity_variance",
+                                         "scribble")])
 def test_trainer_runs_validates_checkpoints_and_resumes(acdc_tree, tmp_path,
                                                         method, sup):
     cfg = _cfg(acdc_tree, tmp_path, method=method, sup_type=sup)
@@ -149,11 +152,15 @@ def test_unported_names_name_their_roadmap_item(build, name):
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the package (walked, so that new modules
+    are covered) and chip_smoke pulls in none of them."""
     code = (
-        "import sys, wsl4mis_torch, wsl4mis_torch.engine.trainer, "
-        "wsl4mis_torch.engine.methods.dmpls, wsl4mis_torch.engine.methods."
-        "pce, wsl4mis_torch.utils.params, wsl4mis_torch.ops._build, "
-        "chip_smoke\n"
+        "import importlib, pkgutil, sys, wsl4mis_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "wsl4mis_torch.__path__, 'wsl4mis_torch.')]\n"
+        "assert len(names) > 30 and 'wsl4mis_torch.ops.gated_crf' in names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'wsl4mis_tpu', 'h5py'))\n"
         "print(bad)\n"

@@ -3,12 +3,13 @@
 The JAX package ``wsl4mis_tpu`` beside it is the reference this package is
 checked against; nothing here imports it (or JAX). Tensors are NHWC at the
 public functions, conv weights HWIO, as in the JAX package. Entry points
-take an explicit device and default to ``"cuda"``; the 3x3 convolutions
-and the batch augmentation run in hand-written kernels (``csrc/``) that
-build with nvcc at first use.
+take an explicit device and default to ``"cuda"``; the 3x3 convolutions,
+the batch augmentation, the 2x2 max pool and the Gated CRF contraction
+run in hand-written kernels (``csrc/``) that build with nvcc at first use.
 
-This slice covers the 2D U-Net training path: fully_supervised, pce and
-dmpls through ``engine.methods.get_method(name).build(cfg)`` and
+Ported so far: the 2D U-Net training paths of fully_supervised, pce, dmpls
+and the five pCE + regularizer methods, through
+``engine.methods.get_method(name).build(cfg)`` and
 ``engine.trainer.Trainer(cfg, bundle).train()``.
 """
 

@@ -24,6 +24,10 @@ class TrainConfig:
     patch_size: tuple[int, int] = (256, 256)
     seed: int = 2022
 
+    # consistency weight and its sigmoid ramp (pce_intensity_variance)
+    consistency: float = 0.1
+    consistency_rampup: float = 200.0
+
     # run knobs
     method: str = "fully_supervised"
     snapshot_root: str = "model"

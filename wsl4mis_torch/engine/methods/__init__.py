@@ -1,8 +1,9 @@
 """Training methods of the port. ``get_method(name)`` returns the module;
 each exposes ``build(cfg) -> MethodBundle`` and ``make_step(cfg)``.
 
-This slice has fully_supervised, pce and dmpls; the other methods of the
-JAX package raise NotImplementedError naming their ROADMAP item.
+Ported so far: fully_supervised, pce, dmpls and the five pCE + regularizer
+methods of ``pce_regularized``; the other methods of the JAX package raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,12 +14,15 @@ _METHODS = {
     "fully_supervised": "fully_supervised",
     "pce": "pce",
     "dmpls": "dmpls",
+    "pce_tv": "pce_regularized",
+    "pce_entropy_mini": "pce_regularized",
+    "pce_gatedcrf": "pce_regularized",
+    "pce_mumford_shah": "pce_regularized",
+    "pce_intensity_variance": "pce_regularized",
 }
 
 # method -> ROADMAP.md Queue 1 item that ports it
 _NOT_YET = {
-    "pce_tv": 10, "pce_entropy_mini": 10, "pce_gatedcrf": 10,
-    "pce_mumford_shah": 10, "pce_intensity_variance": 10,
     "pce_random_walker": 15,
     "mean_teacher": 11, "uamt": 11, "entropy_minimization": 11,
     "partially_supervised": 11, "deep_adversarial": 11,

@@ -110,6 +110,16 @@ def supervised_ce_dice(outputs, labels, num_classes: int):
     return 0.5 * (loss_ce + loss_dice), loss_ce, loss_dice
 
 
+def sigmoid_rampup(current, rampup_length: float):
+    """exp(-5 (1 - t)^2), t = clip(current, 0, length) / length, for an int
+    step or a tensor of steps; an f32 tensor (on the tensor's device)."""
+    if rampup_length == 0:
+        return torch.tensor(1.0)
+    cur = torch.as_tensor(current).float().clamp(0.0, rampup_length)
+    phase = 1.0 - cur / rampup_length
+    return torch.exp(-5.0 * phase * phase)
+
+
 def train_vis(x, logits, labels) -> dict:
     """Batch element 1's image, argmax prediction and label (the TB
     train/Image, Prediction, GroundTruth triptych)."""

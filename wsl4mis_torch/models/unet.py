@@ -2,7 +2,8 @@
 
 * ConvBlock = conv3x3 -> BN -> LeakyReLU(0.01) -> dropout -> conv3x3 ->
   BN -> LeakyReLU. Encoder channels (16, 32, 64, 128, 256) with dropout
-  (0.05, 0.1, 0.2, 0.3, 0.5) and 2x2 max-pool downsampling; the decoder
+  (0.05, 0.1, 0.2, 0.3, 0.5) and 2x2 max-pool downsampling
+  (``ops.maxpool``, on the NHWC tensor as it is); the decoder
   upsamples with a 2x2 stride-2 transposed conv, concatenates the skip
   and runs a dropout-free ConvBlock; a 3x3 head gives the logits.
 * Every 3x3 conv (19 in a UNet) goes through ``ops.conv3x3``; in train
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_stats
+from ..ops.maxpool import max_pool_2x2
 from .norm import FusedBatchNorm
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
@@ -80,13 +82,6 @@ class ConvTranspose2x2(nn.Module):
         y = (y + self.bias.repeat(4)).to(self.dtype)  # (N,H,W,(a,b,o))
         y = y.view(n, h, w, 2, 2, o).permute(0, 1, 3, 2, 4, 5)
         return y.reshape(n, 2 * h, 2 * w, o)
-
-
-def max_pool_2x2(x):
-    """2x2 stride-2 max pool, NHWC. F.max_pool2d's backward routes each
-    window's gradient to its first max, as select-and-scatter does."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
-    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def channel_dropout(x, keep, rate: float = 0.5):

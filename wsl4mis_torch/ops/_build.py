@@ -54,6 +54,25 @@ LIBRARIES = {
         ["-fmad=false"],
         {"augment": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     ),
+    "maxpool": (
+        "maxpool.cu",
+        [],
+        {
+            "maxpool_fwd": [_P, _P, _I, _I, _I, _I, _I, _P],
+            "maxpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        },
+    ),
+    # weights and desc_of are host arrays (float[nd], int[F]), copied into
+    # the kernel's by-value arguments
+    "gated_crf": (
+        "gated_crf.cu",
+        [],
+        {
+            "gated_crf_blocks": [_I, _I],
+            "gated_crf_products": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _P, _P, _P],
+        },
+    ),
 }
 
 _lock = threading.Lock()
