@@ -8,7 +8,9 @@ without a card it exits 2 and prints no result. Phases, each fatal on
 failure:
 
 1. The card (nvidia-smi name and power limit), and the build of every
-   kernel from ``wsl4mis_torch/csrc`` (timed).
+   kernel from ``wsl4mis_torch/csrc`` (timed). ptxas must report no spill
+   in any conv kernel, and every bf16 conv kernel's SASS (cuobjdump) must
+   hold tensor-core instructions (HMMA / HGMMA; counts printed).
 2. Kernels: each kernel of the training paths against its plain
    PyTorch version on the card, at the paths' shapes (every UNet 3x3 conv
    at 256x256, in bf16 and f32: forward, forward + moments, input
@@ -19,8 +21,13 @@ failure:
    forward at 64, in bf16 and f32, on a tie-heavy input drawn from five
    levels and on a random one; the GatedCRF contraction, loss and
    gradient at (B, 256, 256), radius 5, for B = 6 and 24 with the default
-   descriptor, and a small two-descriptor case). The batch-24 bf16
-   launches (GatedCRF: batch 6, f32, its training batch) are timed:
+   descriptor, and a small two-descriptor case). Off the paths, the conv
+   also runs in all four roles at the ragged shapes of
+   tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
+   and every batch-24 bf16 conv launch is repeated and must be bit-equal.
+   The host time of one call of each conv wrapper is recorded
+   (wrapper_host_us). The batch-24 bf16 launches (GatedCRF: batch 6,
+   f32, its training batch) are timed:
    CUDA-event medians of 12 launches after 3 warm-up launches, for the
    kernel, its plain version and, where one PyTorch call
    computes the same function, that call (library_ms; cuDNN's
@@ -51,9 +58,10 @@ failure:
    versions), beside the CPU's own gradient spread and a known-wrong
    variant (bf16 kernels); see reference_check for the tolerances.
 
-Output: detail lines, the per-kernel JSON line, the nvidia-smi line, and
-last {"ok": true, "device": {...}}. All records also go to one JSON file,
-build/chip_smoke/chip_smoke.json unless --detail names another.
+Output: detail lines, a per-conv table of the batch-24 step's conv
+launches (conv-table lines), the per-kernel JSON line, the nvidia-smi
+line, and last {"ok": true, "device": {...}}. All records also go to one
+JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -81,10 +90,17 @@ PALLAS_CONV = "wsl4mis_tpu/ops/pallas/banded_conv_pallas.py"
 SRC_POOL = "wsl4mis_torch/csrc/maxpool.cu"
 PALLAS_POOL = "wsl4mis_tpu/ops/pallas/maxpool_pallas.py"
 GCRF_RADIUS = 5
-# device function names of the port's kernels, as a trace shows them
+# device function names of the port's kernels, as a trace shows them: every
+# __global__ of wsl4mis_torch/csrc (the conv's f32 SIMT kernels and its bf16
+# tensor-core ones apart)
 PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
+                "conv3x3_fwd_mma_kernel", "conv3x3_wgrad_mma_kernel",
                 "augment_kernel", "maxpool_fwd_kernel", "maxpool_bwd_kernel",
                 "gated_crf_kernel")
+# (C, O, H, W) of tests/test_torch_conv3x3.py: the stem (C = 1), the head's
+# dgrad family (C = 4), the head (O = 4), a width that is no multiple of 16
+RAGGED_CONVS = ((1, 16, 8, 256), (4, 16, 8, 256), (16, 4, 8, 32),
+                (32, 16, 8, 250))
 TWO_DESC = ({"weight": 0.9, "xy": 6.0, "rgb": 0.1},
             {"weight": 0.1, "xy": 6.0})
 
@@ -169,29 +185,32 @@ def expect(ok, what):
 # ---- phase 2: kernels -------------------------------------------------------
 
 
-def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
+def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False,
+               dev="cuda", width=None, case=None, repeat=False):
     """Check (and, if timed, time) fwd, fwd_stats and wgrad at one conv
-    shape and batch n, and the dgrad (the fwd kernel on g with rotated
-    weights). eval_only checks the fwd alone: the validation forward runs
-    every conv through it. Returns records."""
+    shape (n, h, width or h, c -> o), and the dgrad (the fwd kernel on g
+    with rotated weights). eval_only checks the fwd alone: the validation
+    forward runs every conv through it. case tags the records (e.g.
+    "ragged": off the training path); repeat also checks that a second
+    call of each kernel is bit-equal to the first. Returns records."""
     import torch
     import torch.nn.functional as F
 
     from wsl4mis_torch.ops import conv3x3 as cv
 
     dt = getattr(torch, dtype_name)
-    dev = "cuda"
+    wd = width or h
     gen = torch.Generator(device=dev).manual_seed(c * 1009 + o * 7 + h)
     init = 1.0 / math.sqrt(9 * c)  # torch's default init bound
-    x = torch.randn((n, h, h, c), generator=gen, device=dev).to(dt)
+    x = torch.randn((n, h, wd, c), generator=gen, device=dev).to(dt)
     w = ((torch.rand((3, 3, c, o), generator=gen, device=dev) * 2 - 1)
          * init).to(dt)
     b = ((torch.rand((o,), generator=gen, device=dev) * 2 - 1)
          * init).to(dt)
-    g = torch.randn((n, h, h, o), generator=gen, device=dev).to(dt)
+    g = torch.randn((n, h, wd, o), generator=gen, device=dev).to(dt)
     w_rot = w.flip(0, 1).transpose(2, 3).contiguous()
     es = x.element_size()
-    px = n * h * h
+    px = n * h * wd
     flops = 2.0 * px * 9 * c * o
     recs = []
 
@@ -215,22 +234,28 @@ def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
                    (got.float() - want.float()).abs().max()),
                "err": err, "err_unit": unit, "ok": ok,
                **bound(nbytes, flops, dtype_name)}
+        if case:
+            rec["case"] = case
         if extra:
             rec.update(extra)
+        if repeat:
+            rec["repeat_bit_equal"] = bit_equal(fn_k(), fn_k())
+            ok = ok and rec["repeat_bit_equal"]
         if timed:
             rec["ms"] = time_ms(fn_k)
             rec["plain_ms"] = time_ms(fn_p)
             rec["library_ms"] = time_ms(fn_l) if fn_l else None
         recs.append(rec)
         print("kernel-check " + json.dumps(rec), flush=True)
-        expect(ok, f"{kernel} {name} {dtype_name}: err {err} {unit}")
+        expect(ok, f"{kernel} {name} {dtype_name} {shape}: err {err} {unit}"
+                   f", repeat {rec.get('repeat_bit_equal')}")
 
     # forward
     y = cv.conv3x3_fwd(x, w, b)
     yp = cv.conv3x3_plain(x, w, b)
     err, ok, unit = out_err(y, yp)
     nb_fwd = (px * c + 9 * c * o + o + px * o) * es
-    record("conv3x3_fwd", [n, h, h, c, o], y, yp, err, ok, unit, nb_fwd,
+    record("conv3x3_fwd", [n, h, wd, c, o], y, yp, err, ok, unit, nb_fwd,
            lambda: cv.conv3x3_fwd(x, w, b), lambda: cv.conv3x3_plain(x, w, b),
            lib_conv(x, w, b), {"role": "eval"} if eval_only else None)
     if eval_only:
@@ -245,7 +270,7 @@ def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
     yf = ys.float()
     m_err = max(rel_max(s1, yf.sum((0, 1, 2))),
                 rel_max(s2, (yf * yf).sum((0, 1, 2))))
-    record("conv3x3_fwd_stats", [n, h, h, c, o], ys, yps, err,
+    record("conv3x3_fwd_stats", [n, h, wd, c, o], ys, yps, err,
            ok and m_err <= 1e-4, unit, nb_fwd + 2 * o * 4,
            lambda: cv.conv3x3_fwd_stats(x, w, b),
            lambda: cv.conv3x3_stats_plain(x, w, b), None,
@@ -257,7 +282,7 @@ def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
         dx = cv.conv3x3_fwd(g, w_rot)
         dxp = cv.conv3x3_plain(g, w_rot)
         err, ok, unit = out_err(dx, dxp)
-        record("conv3x3_fwd", [n, h, h, o, c], dx, dxp, err, ok, unit,
+        record("conv3x3_fwd", [n, h, wd, o, c], dx, dxp, err, ok, unit,
                (px * o + 9 * c * o + px * c) * es,
                lambda: cv.conv3x3_fwd(g, w_rot),
                lambda: cv.conv3x3_plain(g, w_rot), lib_conv(g, w_rot, None),
@@ -275,11 +300,21 @@ def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False):
             gi, xi, wi, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [False, True, False])
 
-    record("conv3x3_wgrad", [n, h, h, c, o], dk, dkp, err, err <= tol,
+    record("conv3x3_wgrad", [n, h, wd, c, o], dk, dkp, err, err <= tol,
            "rel_norm", (px * c + px * o) * es + 9 * c * o * 4,
            lambda: cv.conv3x3_wgrad(x, g),
            lambda: cv.conv3x3_wgrad_plain(x, g), lib_wgrad)
     return recs
+
+
+def bit_equal(a, b):
+    """Whether two kernel results (a tensor or a tuple of them) are equal
+    bit for bit."""
+    import torch
+
+    if isinstance(a, tuple):
+        return all(bit_equal(u, v) for u, v in zip(a, b))
+    return bool(torch.equal(a, b))
 
 
 def check_augment(seed, b, timed):
@@ -580,7 +615,8 @@ def run_method(method, model_name, batch, steps, validate, data, val,
 
 def time_step(step_fn, state, aux, cfg, data, seed, time_steps):
     """Steady-state step time (a synchronized loop over `time_steps` steps
-    after one warm step), peak memory, and a profile of the same steps."""
+    after one warm step), the host's share of it, peak memory, and a
+    profile of the same steps."""
     import torch
 
     from wsl4mis_torch.engine.methods.common import index_batches, split_rngs
@@ -593,9 +629,13 @@ def time_step(step_fn, state, aux, cfg, data, seed, time_steps):
     t0 = time.perf_counter()
     for bt, rg in zip(batches, rngs):
         step_fn(state, bt, rg, aux)
+    t_host = time.perf_counter()
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / time_steps
     return {"ms_per_step": ms, "slices_per_s": 1e3 * cfg.batch_size / ms,
+            # until the host has issued the last step (it waits inside a
+            # step only where the step reads a value back)
+            "host_ms_per_step": 1e3 * (t_host - t0) / time_steps,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "profile": profile_steps(step_fn, state, batches, rngs, aux)}
 
@@ -848,7 +888,10 @@ def _bound_by(recs):
 def _on_path(r):
     """Whether a kernel-check record is a launch of the training path:
     the stats kernel runs for ConvBlock convs, the fwd kernel for the
-    head, for every dgrad and for every conv of the validation forward."""
+    head, for every dgrad and for every conv of the validation forward.
+    The ragged shapes are no launch of a path."""
+    if r.get("case") == "ragged":
+        return False
     if r["kernel"] == "conv3x3_fwd_stats":
         return r["conv"] != "head"
     if r["kernel"] == "conv3x3_fwd":
@@ -856,6 +899,99 @@ def _on_path(r):
     if r["kernel"] == "gated_crf":
         return r["role"] == "path"
     return True
+
+
+def conv_table(recs):
+    """Markdown rows, one per UNet conv, of the b24 bf16 step's conv
+    launches: the forward (fwd_stats, fwd for the head), the dgrad and
+    the wgrad, each as ms / bound ms / cuDNN ms (the forward's cuDNN is
+    F.conv2d, which computes no moments)."""
+    mine = {}
+    for r in recs:
+        if (r["kernel"].startswith("conv3x3") and r["dtype"] == "bfloat16"
+                and "ms" in r and r["shape"][0] == N
+                and r.get("case") is None and _on_path(r)):
+            role = ("wgrad" if r["kernel"] == "conv3x3_wgrad"
+                    else r.get("role") or "fwd")
+            mine[(r["conv"], role)] = r
+    lib_fwd = {r["conv"]: r["library_ms"] for r in recs
+               if r["kernel"] == "conv3x3_fwd" and "ms" in r
+               and r["dtype"] == "bfloat16" and r.get("role") is None
+               and r.get("case") is None and r["shape"][0] == N}
+
+    def cell(r, lib=None):
+        if r is None:
+            return "—"
+        lib = r["library_ms"] if lib is None else lib
+        lib = "—" if lib is None else f"{lib:.4f}"
+        return f"{r['ms']:.4f} / {r['bound_ms']:.4f} / {lib}"
+
+    rows = ["| conv | C→O | H | fwd(+stats) ms / bound / cuDNN | dgrad | "
+            "wgrad |", "|---|---|---|---|---|---|"]
+    for name, c, o, h in unet_convs():
+        fwd = mine.get((name, "fwd"))
+        dg = mine.get((name, "dgrad"))
+        rows.append(f"| {name} | {c}→{o} | {h} | {cell(fwd, lib_fwd.get(name))}"
+                    f" | {cell(dg)} | {cell(mine.get((name, 'wgrad')))} |")
+    return rows
+
+
+def wrapper_host_us(reps=300):
+    """Host time of one call of each conv wrapper (bf16, a 6x16x16x64 ->
+    64 conv, too small for the device to be the limit): the mean over
+    `reps` calls enqueued back to back, before the closing synchronize."""
+    import torch
+
+    from wsl4mis_torch.ops import conv3x3 as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((6, 16, 16, 64), generator=gen, device="cuda").bfloat16()
+    w = (0.1 * torch.randn((3, 3, 64, 64), generator=gen,
+                           device="cuda")).bfloat16()
+    b = torch.randn((64,), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for name, fn in (("conv3x3_fwd", lambda: cv.conv3x3_fwd(x, w, b)),
+                     ("conv3x3_fwd_stats",
+                      lambda: cv.conv3x3_fwd_stats(x, w, b)),
+                     ("conv3x3_wgrad", lambda: cv.conv3x3_wgrad(x, x))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+    return out
+
+
+def mma_counts(sass):
+    """{function: number of HMMA / HGMMA instructions} in a cuobjdump
+    -sass listing."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def conv_sass_report(lib_path, nvcc):
+    """Tensor-core instruction counts of every function in the built conv
+    library (cuobjdump -sass), names demangled by cu++filt."""
+    bindir = os.path.dirname(nvcc)
+    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+                           lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = mma_counts(sass)
+    names = list(counts)
+    demangled = subprocess.run(
+        [os.path.join(bindir, "cu++filt")], input="\n".join(names),
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.splitlines()
+    return {d.strip(): counts[m] for m, d in zip(names, demangled)}
 
 
 def main(argv=None):
@@ -895,19 +1031,37 @@ def main(argv=None):
     ptxas = [f"{name}: {line.strip()}"
              for name, log in sorted(_build.build_logs.items())
              for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line
+             or "Compiling entry function" in line]
     for line in ptxas:
         print(f"ptxas {line}", flush=True)
+    spills = [line for line in ptxas if line.startswith("conv3x3:")
+              and "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    expect(not spills, f"ptxas: the conv kernels spill: {spills}")
+    sass = conv_sass_report(_build.lib_path("conv3x3"), _build.nvcc_path())
+    for fn, count in sorted(sass.items()):
+        print(f"sass conv3x3: {count} HMMA/HGMMA in {fn}", flush=True)
+    # 8 forward (BN 16..128, with and without moments), 3 wgrad (BN 16..64)
+    mma = {fn: k for fn, k in sass.items() if "_mma_kernel" in fn}
+    expect(len(mma) == 11 and all(mma.values()),
+           f"sass: the bf16 conv kernels hold no tensor-core op: {mma}")
 
     recs = []
     for dtype in ("bfloat16", "float32"):
         for name, c, o, h in unet_convs():
             recs += check_conv(name, c, o, h, dtype, N,
-                               timed=dtype == "bfloat16")
+                               timed=dtype == "bfloat16",
+                               repeat=dtype == "bfloat16")
             for n in (MS_N, DMPLS_N):
                 recs += check_conv(name, c, o, h, dtype, n, timed=False)
             recs += check_conv(name, c, o, h, dtype, EVAL_N, timed=False,
                                eval_only=True)
+        for c, o, h, wd in RAGGED_CONVS:
+            recs += check_conv(f"ragged {c}->{o}", c, o, h, dtype, 2,
+                               timed=False, width=wd, case="ragged")
+        recs += check_conv("ragged n1", 32, 16, HW, dtype, 1, timed=False,
+                           case="ragged")
         for name, c, h in unet_pools():
             for ties in (False, True):
                 recs += check_pool(name, c, h, dtype, N, ties,
@@ -917,6 +1071,8 @@ def main(argv=None):
                                        timed=False)
                 recs += check_pool(name, c, h, dtype, EVAL_N, ties,
                                    timed=False, backward=False)
+    host_us = wrapper_host_us()
+    print("wrapper-host-us " + json.dumps(host_us), flush=True)
     recs += check_augment(args.seed, N, timed=True)
     recs += check_augment(args.seed + 1, DMPLS_N, timed=False)
     recs += check_augment(args.seed + 2, MS_N, timed=False)
@@ -958,8 +1114,13 @@ def main(argv=None):
     idle = sorted(k for k, v in launches.items() if v == 0)
     expect(not idle, f"kernels never launched on a training path: {idle}")
     kernels = summarize(recs, launches)
+    table = conv_table(recs)
+    for row in table:
+        print(f"conv-table {row}", flush=True)
     detail = {"card": card, "torch": torch.__version__,
-              "build_s": build_s, "ptxas": ptxas, "checks": recs,
+              "build_s": build_s, "ptxas": ptxas, "sass_mma": sass,
+              "wrapper_host_us": host_us,
+              "conv_table": table, "checks": recs,
               "runs": runs,
               "reference": ref, "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

@@ -242,3 +242,145 @@ def test_bf16_kernels_variant_rounds_every_conv_and_restores(monkeypatch):
     assert {k: getattr(tconv, k) for k in names} == before
     assert np.isfinite(loss_w) and loss_w != loss
     assert chip_smoke.grad_err(got, want) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,o,h,w", chip_smoke.RAGGED_CONVS)
+def test_conv_check_runs_on_the_cpu_at_the_ragged_shapes(c, o, h, w, dtype):
+    """check_conv at each ragged shape on the CPU (the wrapper's plain route
+    against the plain version): the four roles, each within its limit and
+    bit-equal on a repeat, tagged off the training path, with the bound of
+    the bytes each role moves."""
+    recs = chip_smoke.check_conv(f"ragged {c}->{o}", c, o, h, dtype, 2,
+                                 timed=False, dev="cpu", width=w,
+                                 case="ragged", repeat=True)
+    assert [(r["kernel"], r.get("role")) for r in recs] == [
+        ("conv3x3_fwd", None), ("conv3x3_fwd_stats", None),
+        ("conv3x3_fwd", "dgrad"), ("conv3x3_wgrad", None)]
+    assert [r["shape"] for r in recs] == [[2, h, w, c, o]] * 2 + \
+        [[2, h, w, o, c], [2, h, w, c, o]]
+    es = 2 if dtype == "bfloat16" else 4
+    px = 2 * h * w
+    for r in recs:
+        assert r["ok"] and r["repeat_bit_equal"] and r["case"] == "ragged"
+        assert not chip_smoke._on_path(r)
+    assert recs[0]["bound_ms"] == pytest.approx(max(
+        1e3 * (px * c + 9 * c * o + o + px * o) * es
+        / chip_smoke.HBM_BYTES_PER_S,
+        1e3 * 2.0 * px * 9 * c * o / chip_smoke.PEAK_FLOPS[dtype]))
+
+
+def test_port_kernels_are_the_csrc_global_functions():
+    """PORT_KERNELS, by which the profile attributes device time, names
+    exactly the __global__ functions of wsl4mis_torch/csrc/*.cu."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "wsl4mis_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+            src))
+    assert names == set(chip_smoke.PORT_KERNELS)
+    assert len(chip_smoke.PORT_KERNELS) == len(names)
+
+
+CANNED_SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_122conv3x3_fwd_mma_kernelILi16ELb1EEEvPK13__nv_bfloat16
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0450*/                   LDSM.16.M88.4 R8, [R12] ;
+        /*0460*/                   HMMA.16816.F32.BF16 R4, R8, R16, R4 ;
+        /*0470*/                   HMMA.16816.F32.BF16 R20, R8, R18, R20 ;
+        /*0480*/                   FFMA R2, R3, R4, R2 ;
+		Function : _ZN12_GLOBAL__N_118conv3x3_fwd_kernelIfLb0EEEvPKT_
+        /*0000*/                   FFMA R2, R3, R4, R2 ;
+        /*0010*/                   MOV R5, 0x0 ;
+		Function : wgmma_kernel
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0010*/                   WARPGROUP.ARRIVE ;
+"""
+
+
+def test_mma_counts_reads_a_sass_dump():
+    """mma_counts counts HMMA and HGMMA lines per function of a cuobjdump
+    -sass listing, and nothing else (LDSM, FFMA, WARPGROUP)."""
+    counts = chip_smoke.mma_counts(CANNED_SASS)
+    assert counts == {
+        "_ZN12_GLOBAL__N_122conv3x3_fwd_mma_kernelILi16ELb1EEEvPK13"
+        "__nv_bfloat16": 2,
+        "_ZN12_GLOBAL__N_118conv3x3_fwd_kernelIfLb0EEEvPKT_": 0,
+        "wgmma_kernel": 1}
+    assert chip_smoke.mma_counts("") == {}
+
+
+def test_conv_table_has_a_row_per_conv_from_the_step_records():
+    """conv_table lists the 19 UNet convs in order, each with the b24 bf16
+    step's forward (fwd_stats, the fwd for the head, cuDNN from the plain
+    forward's record), dgrad and wgrad: records of another batch, dtype
+    or case stay out."""
+    def rec(kernel, conv, ms, lib, role=None, n=chip_smoke.N,
+            dtype="bfloat16", case=None):
+        r = {"kernel": kernel, "conv": conv, "dtype": dtype,
+             "shape": [n, 8, 8, 1, 1], "ms": ms, "bound_ms": 0.5,
+             "library_ms": lib}
+        if role:
+            r["role"] = role
+        if case:
+            r["case"] = case
+        return r
+
+    recs = [rec("conv3x3_fwd", "enc0.conv2", 9.0, 3.0),
+            rec("conv3x3_fwd_stats", "enc0.conv2", 2.0, None),
+            rec("conv3x3_fwd", "enc0.conv2", 1.5, 2.5, role="dgrad"),
+            rec("conv3x3_wgrad", "enc0.conv2", 1.25, 4.0),
+            rec("conv3x3_wgrad", "enc0.conv2", 7.0, 7.0, n=6),
+            rec("conv3x3_wgrad", "enc0.conv2", 7.0, 7.0, dtype="float32"),
+            rec("conv3x3_fwd_stats", "ragged n1", 7.0, None, case="ragged"),
+            rec("conv3x3_fwd", "head", 0.75, 1.0),
+            {"kernel": "maxpool_fwd", "pool": "pool0", "dtype": "bfloat16",
+             "shape": [chip_smoke.N, 8, 8, 1], "ms": 1.0, "bound_ms": 0.5,
+             "library_ms": 1.0}]
+    rows = chip_smoke.conv_table(recs)
+    assert len(rows) == 2 + 19
+    names = [row.split("|")[1].strip() for row in rows[2:]]
+    assert names == [name for name, *_ in chip_smoke.unet_convs()]
+    enc0 = rows[2 + names.index("enc0.conv2")].split("|")
+    assert [cell.strip() for cell in enc0[4:7]] == [
+        "2.0000 / 0.5000 / 3.0000", "1.5000 / 0.5000 / 2.5000",
+        "1.2500 / 0.5000 / 4.0000"]
+    head = rows[2 + names.index("head")].split("|")
+    assert head[4].strip() == "0.7500 / 0.5000 / 1.0000"
+    assert head[5].strip() == head[6].strip() == "—"
+
+
+def test_summary_leaves_out_the_ragged_shapes():
+    """The ragged-shape records are no launch of a training path: they
+    enter neither the kernels line's error nor its times."""
+    base = {"ms": 1.0, "plain_ms": 1.0, "library_ms": 1.0, "bound_ms": 1.0,
+            "bound_by": "bytes"}
+    recs = []
+    for kernel, dtype, extra in (
+            ("conv3x3_fwd", "bfloat16", {"conv": "head"}),
+            ("conv3x3_fwd_stats", "bfloat16", {"conv": "enc0.conv1"}),
+            ("conv3x3_wgrad", "bfloat16", {"conv": "head"}),
+            ("augment", "float32+int32", {}),
+            ("gated_crf", "float32", {"role": "path"}),
+            ("maxpool_fwd", "bfloat16", {"pool": "pool0"}),
+            ("maxpool_bwd", "bfloat16", {"pool": "pool0"})):
+        recs.append({"kernel": kernel, "dtype": dtype, "max_abs_err": 0.1,
+                     **base, **extra})
+        if kernel.startswith("conv3x3"):
+            recs.append({"kernel": kernel, "dtype": dtype, "conv": "ragged",
+                         "case": "ragged", "max_abs_err": 5.0,
+                         **base, "ms": 100.0})
+    launches = {k: 1 for d in chip_smoke._counters() for k in d}
+    for row in chip_smoke.summarize(recs, launches):
+        assert row["max_abs_err"] == 0.1 and row["ms"] == 1.0

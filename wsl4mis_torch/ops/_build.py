@@ -40,11 +40,11 @@ LIBRARIES = {
         [],
         {
             "conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-            "conv3x3_stats_rows": [_I, _I, _I],
+            "conv3x3_stats_rows": [_I, _I, _I, _I, _I],
             "conv3x3_fwd_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _P],
-            "conv3x3_wgrad_splits": [_I, _I, _I, _I, _I],
-            "conv3x3_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+            "conv3x3_wgrad_splits": [_I, _I, _I, _I, _I, _I],
+            "conv3x3_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         },
     ),
     # -fmad=false: the rotate's coordinates must round like the plain
@@ -150,6 +150,12 @@ def load_all() -> dict[str, ctypes.CDLL]:
         for name in missing:
             _libs[name] = _bind(name, _target(name)[0])
         return _libs
+
+
+def lib_path(name: str) -> str:
+    """The built shared library of `name` (building it first if needed)."""
+    load_all()
+    return _target(name)[0]
 
 
 def lib(name: str) -> ctypes.CDLL:

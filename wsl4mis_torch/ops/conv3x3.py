@@ -3,7 +3,8 @@
 Port of the function of ``wsl4mis_tpu/ops/pallas/banded_conv_pallas.py``
 (``banded_conv3x3_pallas`` and ``banded_conv3x3_pallas_stats`` with their
 custom VJPs, :609-686), not of its TPU band layout. Kernels live in
-``csrc/conv3x3.cu``:
+``csrc/conv3x3.cu``: bf16 on the tensor cores (mma.sync implicit GEMMs),
+f32 on the CUDA cores (SIMT FMA; see the source's note for why).
 
 * ``conv3x3_fwd``: y = conv(x, w) + b, f32 accumulate, one rounding to
   the input dtype. It is also the input gradient: dx = conv(g, rot(w))
@@ -18,6 +19,12 @@ them. The bias gradient is a torch reduction of g in f32, as the JAX
 package leaves it to XLA. A CUDA tensor goes to the kernels (or the
 wrapper raises); a CPU tensor goes to the plain PyTorch versions beside
 them. ``launches`` counts kernel launches by name.
+
+C interface (``_build.LIBRARIES["conv3x3"]``): the kernels write
+per-block f32 partials that the wrapper folds with a torch sum, sized by
+``conv3x3_stats_rows(N, H, W, O, dtype)`` (moments: (rows, 2, O)) and
+``conv3x3_wgrad_splits(N, H, W, C, O, dtype)`` (dK: (splits, 3, 3, C, O));
+both depend on the dtype, since the bf16 and f32 kernels tile differently.
 """
 
 from __future__ import annotations
@@ -96,7 +103,8 @@ def _fwd_kernel(x, w, b, stats):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if stats:
-            part = torch.empty((lib.conv3x3_stats_rows(n, h, wd), 2, o),
+            part = torch.empty((lib.conv3x3_stats_rows(
+                n, h, wd, o, _DTYPE_CODE[x.dtype]), 2, o),
                                dtype=torch.float32, device=x.device)
             err = lib.conv3x3_fwd_stats(
                 x.data_ptr(), w.data_ptr(), bp, y.data_ptr(), part.data_ptr(),
@@ -126,14 +134,13 @@ def _wgrad_kernel(x, g):
     n, h, wd, c = x.shape
     o = g.shape[3]
     lib = _build.lib("conv3x3")
-    splits = lib.conv3x3_wgrad_splits(n, h, wd, c, o)
-    part = torch.empty((splits, 3, 3, c, o), dtype=torch.float32,
-                       device=x.device)
+    code = _DTYPE_CODE[x.dtype]
+    part = torch.empty((lib.conv3x3_wgrad_splits(n, h, wd, c, o, code), 3,
+                        3, c, o), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.conv3x3_wgrad(
             x.data_ptr(), g.data_ptr(), part.data_ptr(), n, h, wd, c, o,
-            splits, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            code, torch.cuda.current_stream().cuda_stream)
     _build.check("conv3x3", "conv3x3_wgrad", err)
     launches["conv3x3_wgrad"] += 1
     return part.sum(0)  # fold the pixel-range splits (deterministic)
