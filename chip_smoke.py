@@ -9,27 +9,39 @@ failure:
 
 1. The card (nvidia-smi name and power limit), and the build of every
    kernel from ``wsl4mis_torch/csrc`` (timed). ptxas must report no spill
-   in any conv kernel, and every bf16 conv kernel's SASS (cuobjdump) must
-   hold tensor-core instructions (HMMA / HGMMA; counts printed).
+   in any conv, augment or GatedCRF kernel, and every bf16 conv kernel's
+   SASS (cuobjdump) must hold tensor-core instructions (HMMA / HGMMA;
+   counts printed).
 2. Kernels: each kernel of the training paths against its plain
    PyTorch version on the card, at the paths' shapes (every UNet 3x3 conv
    at 256x256, in bf16 and f32: forward, forward + moments, input
    gradient and weight gradient at batch 24, 12 and 6, the forward
    alone at the validation's 64-slice chunk; the augmentation on all
-   three branches at batch 24, 12 and 6; the 2x2 max pool at the four
+   three branches at batch 24, 12 and 6, and every policy the sampler
+   draws (the 40 angles, the 8 rot90 / flip pairs, the identity) on
+   planes of 256, 200 (no multiple of the 32-pixel tile) and 54 (no
+   multiple of 4: the 4-byte route); the 2x2 max pool at the four
    encoder levels, forward and backward at batch 24, 12 and 6 and the
    forward at 64, in bf16 and f32, on a tie-heavy input drawn from five
    levels and on a random one; the GatedCRF contraction, loss and
    gradient at (B, 256, 256), radius 5, for B = 6 and 24 with the default
-   descriptor, and a small two-descriptor case). Off the paths, the conv
+   descriptor, at a ragged 40x72 with the default descriptor at radius 3
+   and 5 and with two descriptors, the xy features built from the
+   coordinates, and once with every feature read from memory). Off the
+   paths, the conv
    also runs in all four roles at the ragged shapes of
    tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
    and every batch-24 bf16 conv launch is repeated and must be bit-equal.
-   The host time of one call of each conv wrapper is recorded
-   (wrapper_host_us). The batch-24 bf16 launches (GatedCRF: batch 6,
-   f32, its training batch) are timed:
-   CUDA-event medians of 12 launches after 3 warm-up launches, for the
-   kernel, its plain version and, where one PyTorch call
+   The host time of one call of each conv wrapper, the augment wrapper at
+   batch 24 and the GatedCRF wrapper at batch 6 is recorded
+   (wrapper_host_us), and one call of each of the last two runs under
+   torch.cuda.set_sync_debug_mode("error"): a host-device sync fails the
+   run. The batch-24 bf16 launches (GatedCRF: batch 6, its training
+   batch, and 24; f32) are timed:
+   CUDA-event medians of 12 calls after 3 warm-up calls (the augment and
+   GatedCRF calls also in a torch.profiler trace of 10 calls: the
+   kernels alone, kernel_ms), for the kernel, its plain version and,
+   where one PyTorch call
    computes the same function, that call (library_ms; cuDNN's
    conv, F.max_pool2d and its backward on a channels-last view). bound_ms
    is max(bytes / 3.35 TB/s, flops / peak) with bf16 at 989 TFLOP/s and
@@ -95,8 +107,13 @@ GCRF_RADIUS = 5
 # tensor-core ones apart)
 PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
                 "conv3x3_fwd_mma_kernel", "conv3x3_wgrad_mma_kernel",
-                "augment_kernel", "maxpool_fwd_kernel", "maxpool_bwd_kernel",
-                "gated_crf_kernel")
+                "augment_fill_kernel", "augment_kernel",
+                "maxpool_fwd_kernel", "maxpool_bwd_kernel",
+                "gated_crf_kernel", "gated_crf_fold_kernel")
+# the libraries whose ptxas report must show no spill
+NO_SPILL = ("conv3x3", "augment", "gated_crf")
+# augment planes: the path's, no multiple of the tile, no multiple of 4
+AUG_PLANES = (256, 200, 54)
 # (C, O, H, W) of tests/test_torch_conv3x3.py: the stem (C = 1), the head's
 # dgrad family (C = 4), the head (O = 4), a width that is no multiple of 16
 RAGGED_CONVS = ((1, 16, 8, 256), (4, 16, 8, 256), (16, 4, 8, 32),
@@ -142,6 +159,38 @@ def time_ms(fn, reps=12, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def port_kernel_ms(prof, calls):
+    """Device ms per call (or step) of each of the port's kernels in a
+    torch.profiler trace of `calls` calls."""
+    import torch
+
+    own = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for kernel in PORT_KERNELS:
+                if kernel in e.name:
+                    own[kernel] = own.get(kernel, 0.0) + \
+                        1e-3 * e.time_range.elapsed_us() / calls
+    return own
+
+
+def trace_ms(fn, reps=10):
+    """The kernels alone: device ms per call of each of the port's kernels
+    that fn launches, from a torch.profiler trace of `reps` calls after a
+    warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return port_kernel_ms(prof, reps)
 
 
 def bound(nbytes, flops, dtype):
@@ -317,31 +366,30 @@ def bit_equal(a, b):
     return bool(torch.equal(a, b))
 
 
-def check_augment(seed, b, timed):
-    """The augment kernel against its plain version on a (b, 256, 256)
-    batch. The first rows of the policy are set so that every batch of 3
-    or more holds all three branches; the rest are drawn."""
+def augment_inputs(gen, b, h, dev="cuda"):
+    """A (b, h, h) image batch and int32 labels in 0..4, the first half of
+    the samples without the ignore class 4."""
     import torch
 
-    from wsl4mis_torch.data.augment_device import sample_policy
-    from wsl4mis_torch.ops import augment as ag
-
-    dev, h = "cuda", HW
-    gen = torch.Generator(device=dev).manual_seed(seed)
     images = torch.randn((b, h, h), generator=gen, device=dev)
     labels = torch.randint(0, 5, (b, h, h), generator=gen, device=dev,
                            dtype=torch.int32)
     labels[: b // 2] = labels[: b // 2].clamp(max=3)  # half without class 4
-    flips = [(0, k, a, 0) for k in range(4) for a in range(2)]
-    turns = [(1, 0, 0, ang) for ang in (-20, -13, -7, -1, 0, 5, 11, 19)]
-    rows = [r for trio in zip(flips, turns, [(2, 0, 0, 0)] * 8)
-            for r in trio][:b]
-    policy = sample_policy(gen, labels)
-    policy[: len(rows)] = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return images, labels
+
+
+def augment_record(case, images, labels, policy, timed):
+    """The augment kernel against its plain version: every pixel equal."""
+    import torch
+
+    from wsl4mis_torch.ops import augment as ag
+
+    b, h, _ = images.shape
     img, lab = ag.augment_batch(images, labels, policy)
     img_p, lab_p = ag.augment_batch_plain(images, labels, policy)
     mismatched = int((img != img_p).sum() + (lab != lab_p).sum())
-    rec = {"kernel": "augment", "shape": [b, h, h], "dtype": "float32+int32",
+    rec = {"kernel": "augment", "case": case, "shape": [b, h, h],
+           "dtype": "float32+int32",
            "max_abs_err": float((img - img_p).abs().max()),
            "mismatched_pixels": mismatched, "ok": mismatched == 0,
            "branches": sorted(set(policy[:, 0].tolist())),
@@ -351,10 +399,47 @@ def check_augment(seed, b, timed):
         rec["plain_ms"] = time_ms(
             lambda: ag.augment_batch_plain(images, labels, policy))
         rec["library_ms"] = None
+        rec["kernel_ms"] = trace_ms(
+            lambda: ag.augment_batch(images, labels, policy))
     print("kernel-check " + json.dumps(rec), flush=True)
     expect(rec["ok"] and rec["branches"] == [0, 1, 2],
-           f"augment: {mismatched} pixels differ from the plain version")
-    return [rec]
+           f"augment {case} {rec['shape']}: {mismatched} pixels differ from "
+           "the plain version")
+    return rec
+
+
+def check_augment(seed, b, timed, dev="cuda"):
+    """The augment kernel against its plain version on a (b, 256, 256)
+    batch. The first rows of the policy are set so that every batch of 3
+    or more holds all three branches; the rest are drawn."""
+    import torch
+
+    from wsl4mis_torch.data.augment_device import sample_policy
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images, labels = augment_inputs(gen, b, HW, dev)
+    flips = [(0, k, a, 0) for k in range(4) for a in range(2)]
+    turns = [(1, 0, 0, ang) for ang in (-20, -13, -7, -1, 0, 5, 11, 19)]
+    rows = [r for trio in zip(flips, turns, [(2, 0, 0, 0)] * 8)
+            for r in trio][:b]
+    policy = sample_policy(gen, labels)
+    policy[: len(rows)] = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return [augment_record("path", images, labels, policy, timed)]
+
+
+def check_augment_angles(seed, h, dev="cuda"):
+    """Every policy the sampler draws on one (49, h, h) batch: the 40
+    rotation angles -20..19, the 8 rot90 / flip pairs and the identity."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = [(1, 0, 0, a) for a in range(-20, 20)]
+    rows += [(0, k, a, 0) for k in range(4) for a in range(2)]
+    rows.append((2, 0, 0, 0))
+    images, labels = augment_inputs(gen, len(rows), h, dev)
+    policy = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return [augment_record(f"all policies {h}x{h}", images, labels, policy,
+                           False)]
 
 
 def check_pool(name, c, h, dtype_name, n, ties, timed, backward=True,
@@ -444,9 +529,13 @@ def gcrf_inputs(b, h, w, seed, dev="cuda"):
 
 
 def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
-                    dev="cuda"):
+                    dev="cuda", stored_xy=False):
     """The GatedCRF contraction, loss and gradient against the plain loop.
-    role "path" marks the shape the pce_gatedcrf step launches.
+    role "path" marks the shape the pce_gatedcrf step launches. The
+    contraction takes the path's route (split_features: the kernel builds
+    the xy features from the coordinates) unless stored_xy, where every
+    feature, the xy meshes too, comes in from memory; the plain loop always
+    takes the full stacked features.
 
     Tolerances, all f32 against f32 with the pixel sums folded in f64 on
     both sides: prod (a sum of (2r+1)^2-1 terms of k p <= sum(w) per pixel,
@@ -462,7 +551,12 @@ def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
 
     probs, image = gcrf_inputs(b, h, w, seed, dev)
     feats, weights, splits = gc.stacked_features(image, kernels_desc, h, w)
-    prod, ksum = gc.gated_crf_products(probs, feats, radius, weights, splits)
+    if stored_xy:
+        args = (feats, radius, weights, splits)
+    else:
+        planes, _, nf, xy = gc.split_features(image, kernels_desc, h, w)
+        args = (planes, radius, weights, nf, xy)
+    prod, ksum = gc.gated_crf_products(probs, *args)
     prod_p, ksum_p = gc.gated_crf_products_plain(probs, feats, radius,
                                                  weights, splits)
     p1 = probs.clone().requires_grad_()
@@ -477,6 +571,7 @@ def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
     rec = {"kernel": "gated_crf", "dtype": "float32",
            "shape": [b, h, w, probs.shape[-1], feats.shape[-1]],
            "radius": radius, "descriptors": len(weights), "role": role,
+           "xy": "stored" if stored_xy else "coordinates",
            "max_abs_err": float((prod - prod_p).abs().max()),
            "prod_rel_err": rel_max(prod, prod_p),
            "ksum_rel_err": float(((ksum - ksum_p).abs() / ksum_p).max()),
@@ -491,11 +586,12 @@ def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
                  and rec["loss_err_over_ksum_term"] <= 1e-5
                  and rec["grad_rel_err"] <= 1e-5)
     if timed:
-        rec["ms"] = time_ms(lambda: gc.gated_crf_products(
-            probs, feats, radius, weights, splits))
+        rec["ms"] = time_ms(lambda: gc.gated_crf_products(probs, *args))
         rec["plain_ms"] = time_ms(lambda: gc.gated_crf_products_plain(
             probs, feats, radius, weights, splits), reps=3, warmup=1)
         rec["library_ms"] = None
+        rec["kernel_ms"] = trace_ms(
+            lambda: gc.gated_crf_products(probs, *args))
     print("kernel-check " + json.dumps(rec), flush=True)
     expect(rec["ok"], f"gated_crf {rec['shape']}: {rec}")
     return [rec]
@@ -665,13 +761,8 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
     expect(busy_us > 0, "profile: no device time recorded")
     steps = len(batches)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
-    own = {}
-    for name, us in by_name.items():
-        for kernel in PORT_KERNELS:
-            if kernel in name:
-                own[kernel] = own.get(kernel, 0.0) + 1e-3 * us / steps
     return {"ms_per_step": 1e-3 * wall_us / steps,
-            "port_kernels_ms_per_step": own,
+            "port_kernels_ms_per_step": port_kernel_ms(prof, steps),
             "device_busy_ms_per_step": 1e-3 * busy_us / steps,
             "device_busy_share": busy_us / wall_us,
             "top_kernels_ms_per_step": [[name[:80], 1e-3 * us / steps]
@@ -898,6 +989,8 @@ def _on_path(r):
         return r.get("role") in ("dgrad", "eval") or r["conv"] == "head"
     if r["kernel"] == "gated_crf":
         return r["role"] == "path"
+    if r["kernel"] == "augment":
+        return r.get("case", "path") == "path"
     return True
 
 
@@ -936,24 +1029,46 @@ def conv_table(recs):
     return rows
 
 
-def wrapper_host_us(reps=300):
-    """Host time of one call of each conv wrapper (bf16, a 6x16x16x64 ->
-    64 conv, too small for the device to be the limit): the mean over
-    `reps` calls enqueued back to back, before the closing synchronize."""
+def wrapper_calls():
+    """(name, call, reps) of one call of each wrapper whose host time is
+    recorded: the conv wrappers on a bf16 6x16x16x64 -> 64 conv, too small
+    for the device to be the limit; the augment wrapper at the fs24 step's
+    batch and the GatedCRF contraction at the pce_gatedcrf step's, their
+    path shapes (fewer calls, so that the launch queue never fills)."""
     import torch
 
+    from wsl4mis_torch.data.augment_device import sample_policy
+    from wsl4mis_torch.ops import augment as ag
     from wsl4mis_torch.ops import conv3x3 as cv
+    from wsl4mis_torch.ops import gated_crf as gc
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((6, 16, 16, 64), generator=gen, device="cuda").bfloat16()
     w = (0.1 * torch.randn((3, 3, 64, 64), generator=gen,
                            device="cuda")).bfloat16()
     b = torch.randn((64,), generator=gen, device="cuda").bfloat16()
+    images, labels = augment_inputs(gen, N, HW)
+    policy = sample_policy(gen, labels)
+    probs, image = gcrf_inputs(DMPLS_N, HW, HW, 7)
+    desc = gc.DEFAULT_KERNELS_DESC
+    planes, weights, nf, xy = gc.split_features(image, desc, HW, HW)
+    return [
+        ("conv3x3_fwd", lambda: cv.conv3x3_fwd(x, w, b), 300),
+        ("conv3x3_fwd_stats", lambda: cv.conv3x3_fwd_stats(x, w, b), 300),
+        ("conv3x3_wgrad", lambda: cv.conv3x3_wgrad(x, x), 300),
+        ("augment", lambda: ag.augment_batch(images, labels, policy), 100),
+        ("gated_crf", lambda: gc.gated_crf_products(
+            probs, planes, GCRF_RADIUS, weights, nf, xy), 100),
+    ]
+
+
+def wrapper_host_us(calls):
+    """Host time of one call of each wrapper: the mean over `reps` calls
+    enqueued back to back, before the closing synchronize."""
+    import torch
+
     out = {}
-    for name, fn in (("conv3x3_fwd", lambda: cv.conv3x3_fwd(x, w, b)),
-                     ("conv3x3_fwd_stats",
-                      lambda: cv.conv3x3_fwd_stats(x, w, b)),
-                     ("conv3x3_wgrad", lambda: cv.conv3x3_wgrad(x, x))):
+    for name, fn, reps in calls:
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
@@ -963,6 +1078,35 @@ def wrapper_host_us(reps=300):
         out[name] = 1e6 * (time.perf_counter() - t0) / reps
         torch.cuda.synchronize()
     return out
+
+
+def check_sync_free(calls, names=("augment", "gated_crf")):
+    """One call of each named wrapper under torch.cuda.set_sync_debug_mode(
+    "error"), in which any host-device synchronization raises."""
+    import torch
+
+    for name, fn, _ in calls:
+        if name not in names:
+            continue
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as err:
+            raise Failure(f"{name}: the wrapper synchronizes: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print(f"sync-free {list(names)}: no host-device sync", flush=True)
+    return list(names)
+
+
+def spilling(ptxas):
+    """The ptxas lines of the NO_SPILL libraries that report a spill."""
+    return [line for line in ptxas if line.split(":")[0] in NO_SPILL
+            and "spill" in line
+            and "0 bytes spill stores, 0 bytes spill loads" not in line]
 
 
 def mma_counts(sass):
@@ -1035,10 +1179,8 @@ def main(argv=None):
              or "Compiling entry function" in line]
     for line in ptxas:
         print(f"ptxas {line}", flush=True)
-    spills = [line for line in ptxas if line.startswith("conv3x3:")
-              and "spill" in line
-              and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    expect(not spills, f"ptxas: the conv kernels spill: {spills}")
+    spills = spilling(ptxas)
+    expect(not spills, f"ptxas: kernels of {NO_SPILL} spill: {spills}")
     sass = conv_sass_report(_build.lib_path("conv3x3"), _build.nvcc_path())
     for fn, count in sorted(sass.items()):
         print(f"sass conv3x3: {count} HMMA/HGMMA in {fn}", flush=True)
@@ -1071,20 +1213,30 @@ def main(argv=None):
                                        timed=False)
                 recs += check_pool(name, c, h, dtype, EVAL_N, ties,
                                    timed=False, backward=False)
-    host_us = wrapper_host_us()
+    calls = wrapper_calls()
+    host_us = wrapper_host_us(calls)
     print("wrapper-host-us " + json.dumps(host_us), flush=True)
+    sync_free = check_sync_free(calls)
     recs += check_augment(args.seed, N, timed=True)
     recs += check_augment(args.seed + 1, DMPLS_N, timed=False)
     recs += check_augment(args.seed + 2, MS_N, timed=False)
+    for i, h in enumerate(AUG_PLANES):
+        recs += check_augment_angles(args.seed + 3 + i, h)
     desc = DEFAULT_KERNELS_DESC
     recs += check_gated_crf(DMPLS_N, HW, HW, GCRF_RADIUS, desc, True,
                             args.seed, "path")
     recs += check_gated_crf(N, HW, HW, GCRF_RADIUS, desc, True,
                             args.seed + 1, "batch 24")
-    # a ragged tile edge (40 x 72 against 16 x 32 tiles) on the general
-    # descriptor-list instantiation
+    # ragged tile edges (40 x 72 against 32 x 32 tiles): the default list
+    # at radius 3 and 5, the general instantiation on two descriptors, and
+    # with every feature (xy too) read from memory
+    for r in (3, GCRF_RADIUS):
+        recs += check_gated_crf(2, 40, 72, r, desc, False, args.seed + 2,
+                                "ragged")
     recs += check_gated_crf(2, 40, 72, 3, TWO_DESC, False, args.seed + 2,
                             "two descriptors")
+    recs += check_gated_crf(2, 40, 72, 3, TWO_DESC, False, args.seed + 2,
+                            "two descriptors", stored_xy=True)
 
     data = synthetic_slices(480, (HW, HW), seed=args.seed)
     scribbles = synthetic_slices(480, (HW, HW), seed=args.seed,
@@ -1119,7 +1271,7 @@ def main(argv=None):
         print(f"conv-table {row}", flush=True)
     detail = {"card": card, "torch": torch.__version__,
               "build_s": build_s, "ptxas": ptxas, "sass_mma": sass,
-              "wrapper_host_us": host_us,
+              "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs,
               "reference": ref, "kernels": kernels}

@@ -12,6 +12,9 @@ the JAX package's.
   a 3-shear approximation, branch 1 matches on >= 97% of pixels.
 """
 
+import math
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,7 @@ from wsl4mis_tpu.ops.pallas.augment_pallas import (  # noqa: E402
 )
 from wsl4mis_torch.data.augment_device import sample_policy  # noqa: E402
 from wsl4mis_torch.data.synthetic import synthetic_slices  # noqa: E402
+from wsl4mis_torch.ops import augment as taug  # noqa: E402
 from wsl4mis_torch.ops.augment import augment_batch  # noqa: E402
 
 
@@ -116,3 +120,86 @@ def test_sample_policy_distribution():
     assert p[:, 1].min() == 0 and p[:, 1].max() == 3
     assert set(p[:, 2].tolist()) == {0, 1}
     assert p[:, 3].min() == -20 and p[:, 3].max() == 19
+
+
+def _cos_sin_f32_constant(policy):
+    """The earlier formulation: the angle times an f32 tensor of pi / 180."""
+    theta = policy[:, 3].float() * torch.tensor(math.pi / 180.0,
+                                                dtype=torch.float32)
+    return torch.stack([torch.cos(theta), torch.sin(theta)], 1)
+
+
+def test_python_float_degree_equals_the_f32_constant(monkeypatch):
+    """cos / sin of angle * (pi / 180) as a Python float round exactly as
+    with an f32 tensor of pi / 180, on all 40 angles; so do the rotated
+    batches."""
+    policy = torch.tensor([(1, 0, 0, a) for a in range(-20, 20)],
+                          dtype=torch.int32)
+    got = taug._cos_sin(policy)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, _cos_sin_f32_constant(policy))
+    images, labels = _batch(40, 33, seed=6)
+    img, lab = taug.augment_batch_plain(torch.from_numpy(images),
+                                        torch.from_numpy(labels), policy)
+    monkeypatch.setattr(taug, "_cos_sin", _cos_sin_f32_constant)
+    img0, lab0 = taug.augment_batch_plain(torch.from_numpy(images),
+                                          torch.from_numpy(labels), policy)
+    assert torch.equal(img, img0) and torch.equal(lab, lab0)
+
+
+class _FakeLib:
+    """Stands in for the built library: records the entry point's calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def augment(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(taug._build, "lib", lambda name: lib)
+    monkeypatch.setattr(taug._build, "on_device", lambda t: nullcontext())
+    monkeypatch.setattr(taug._build, "stream", lambda t: 0)
+    return lib
+
+
+def test_augment_wrapper_checks_before_it_launches(fake_lib):
+    """The kernel wrapper rejects bad dtypes, shapes, devices, layouts and
+    limits in Python, before the library is called; a good call makes one
+    call of the C entry point, with the batch and plane size."""
+    img = torch.zeros((3, 8, 8))
+    lab = torch.zeros((3, 8, 8), dtype=torch.int32)
+    pol = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32"):
+        taug._augment_kernel(img.double(), lab, pol)
+    with pytest.raises(TypeError, match="int32"):
+        taug._augment_kernel(img, lab.long(), pol)
+    with pytest.raises(ValueError, match="disagree"):
+        taug._augment_kernel(img, lab[:2], pol)
+    with pytest.raises(ValueError, match="disagree"):
+        taug._augment_kernel(img, lab, pol[:, :3].contiguous())
+    with pytest.raises(ValueError, match="square"):
+        taug._augment_kernel(torch.zeros((3, 8, 6)),
+                             torch.zeros((3, 8, 6), dtype=torch.int32), pol)
+    with pytest.raises(ValueError, match="different devices"):
+        taug._augment_kernel(img, lab.to("meta"), pol)
+    with pytest.raises(ValueError, match="contiguous"):
+        taug._augment_kernel(img.transpose(1, 2), lab, pol)
+    with pytest.raises(ValueError, match="batch"):
+        taug._augment_kernel(torch.zeros((65536, 1, 1)),
+                             torch.zeros((65536, 1, 1), dtype=torch.int32),
+                             torch.zeros((65536, 4), dtype=torch.int32))
+    assert fake_lib.calls == [] and taug.launches == {"augment": 0}
+    big = torch.zeros((2, 100, 100))
+    out_img, out_lab = taug._augment_kernel(
+        big, torch.zeros((2, 100, 100), dtype=torch.int32),
+        torch.zeros((2, 4), dtype=torch.int32))
+    (args,) = fake_lib.calls
+    assert args[6:9] == (2, 100, 100)
+    assert out_img.shape == big.shape and out_lab.dtype == torch.int32
+    assert taug.launches == {"augment": 1}
+    taug.launches["augment"] = 0

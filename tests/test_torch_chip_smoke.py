@@ -384,3 +384,48 @@ def test_summary_leaves_out_the_ragged_shapes():
     launches = {k: 1 for d in chip_smoke._counters() for k in d}
     for row in chip_smoke.summarize(recs, launches):
         assert row["max_abs_err"] == 0.1 and row["ms"] == 1.0
+
+
+def test_augment_checks_run_on_the_cpu():
+    """check_augment and check_augment_angles on the CPU (the wrapper's
+    plain route against the plain version): every policy the sampler
+    draws, the 40 angles among them, on planes that are no tile multiple,
+    tagged off the path but for the path's batch."""
+    (path,) = chip_smoke.check_augment(0, 3, False, dev="cpu")
+    assert path["ok"] and path["case"] == "path"
+    assert chip_smoke._on_path(path)
+    for h in (9, 10):
+        (rec,) = chip_smoke.check_augment_angles(1, h, dev="cpu")
+        assert rec["ok"] and rec["mismatched_pixels"] == 0
+        assert rec["shape"] == [49, h, h] and rec["branches"] == [0, 1, 2]
+        assert not chip_smoke._on_path(rec)
+
+
+def test_gated_crf_check_takes_both_feature_routes_on_the_cpu():
+    """check_gated_crf's contraction on the path's route (xy from the
+    coordinates) and with every feature stored: both records pass and
+    count the same work, that of the full stacked features."""
+    recs = [chip_smoke.check_gated_crf(2, 7, 9, 2, chip_smoke.TWO_DESC,
+                                       False, 0, "two descriptors",
+                                       dev="cpu", stored_xy=stored)[0]
+            for stored in (False, True)]
+    assert [r["xy"] for r in recs] == ["coordinates", "stored"]
+    for r in recs:
+        assert r["ok"] and r["shape"] == [2, 7, 9, 4, 5]
+        assert not chip_smoke._on_path(r)
+    assert recs[0]["bound_ms"] == recs[1]["bound_ms"]
+
+
+def test_spill_check_covers_conv_augment_and_gated_crf():
+    """spilling() reports a spill in any function of the conv, augment or
+    GatedCRF libraries, and nothing for a clean report or another
+    library."""
+    clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    dirty = "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"
+    lines = [f"{lib}: {clean}" for lib in ("conv3x3", "augment",
+                                            "gated_crf", "maxpool")]
+    assert chip_smoke.spilling(lines) == []
+    for lib in ("conv3x3", "augment", "gated_crf"):
+        assert chip_smoke.spilling(lines + [f"{lib}: {dirty}"]) == \
+            [f"{lib}: {dirty}"]
+    assert chip_smoke.spilling([f"maxpool: {dirty}"]) == []

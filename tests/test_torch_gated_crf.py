@@ -9,6 +9,9 @@ terms is good to ~1e-6 of it, so the loss must agree to 1e-5 + 2e-6 |loss|
 (the JAX package's own scan-vs-Pallas test allows 1e-5). Gradients are of
 order 1e-2 and elementwise f32: 1e-7 absolute, as in that test."""
 
+import ctypes
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 
@@ -162,3 +165,127 @@ def test_kernel_wrapper_checks_before_it_launches():
         tg.gated_crf_products(probs.to("meta"), feats.to("meta"), 1, [1.0],
                               [3])
     assert tg.launches == {"gated_crf": 0}
+
+
+@pytest.mark.parametrize("desc", [tg.DEFAULT_KERNELS_DESC, TWO_DESC],
+                         ids=["default", "two_descriptors"])
+def test_xy_from_sigmas_equals_the_stacked_features(desc):
+    """The kernel route's inputs (split_features: the image channels and
+    each descriptor's xy sigma) give, through the plain version, exactly
+    the plain version on the full stacked features; and those are each
+    descriptor's x, y meshes / sigma and image / sigma, built here in
+    numpy."""
+    probs, image = _inputs(2, 9, 13, seed=7)
+    p, img = torch.from_numpy(probs), torch.from_numpy(image)
+    planes, weights, nf, xy = tg.split_features(img, desc, 9, 13)
+    assert planes.shape[-1] == sum(nf) == len(desc) - (desc is TWO_DESC)
+    assert xy == [6.0] * len(desc)
+    feats, w_full, splits = tg.stacked_features(img, desc, 9, 13)
+    assert w_full == weights and splits == [3, 2][:len(desc)]
+    yy, xx = np.meshgrid(np.arange(9, dtype=np.float32),
+                         np.arange(13, dtype=np.float32), indexing="ij")
+    want = []
+    for d in desc:
+        want += [np.broadcast_to(xx / np.float32(d["xy"]), (2, 9, 13)),
+                 np.broadcast_to(yy / np.float32(d["xy"]), (2, 9, 13))]
+        if "rgb" in d:
+            want.append(image[..., 0] / np.float32(d["rgb"]))
+    np.testing.assert_allclose(feats.numpy(), np.stack(want, -1), rtol=1e-6)
+    got = tg.gated_crf_products(p, planes, 4, weights, nf, xy)
+    ref = tg.gated_crf_products_plain(p, feats, 4, weights, splits)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_xy_from_sigmas_matches_scan_and_pallas_at_radius_5():
+    """The kernel route's form of the default descriptor on a 10 x 14
+    image at radius 5: its products give the loss of the JAX scan and of
+    the Pallas kernel in interpret mode."""
+    probs, image = _inputs(2, 10, 14, seed=8)
+    p, img = torch.from_numpy(probs), torch.from_numpy(image)
+    desc = tg.DEFAULT_KERNELS_DESC
+    planes, weights, nf, xy = tg.split_features(img, desc, 10, 14)
+    prod, ksum = tg.gated_crf_products(p, planes, 5, weights, nf, xy)
+    loss = float(tg._loss_from_products(p, prod, ksum))
+    jp, ji = jnp.asarray(probs), jnp.asarray(image)
+    for want in (jax_scan(jp, ji, kernels_desc=desc, radius=5),
+                 gated_crf_loss_pallas(jp, ji, 5, True, kernels_desc=desc)):
+        assert abs(loss - float(want)) <= 1e-5 + 2e-6 * abs(float(want))
+
+
+class _FakeLib:
+    """Stands in for the built library: records the entry point's calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def gated_crf_products(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(tg._build, "lib", lambda name: lib)
+    monkeypatch.setattr(tg._build, "on_device", lambda t: nullcontext())
+    monkeypatch.setattr(tg._build, "stream", lambda t: 0)
+    return lib
+
+
+def test_xy_route_wrapper_checks_before_it_launches(fake_lib):
+    """With xy sigmas the wrapper rejects, in Python and before the library
+    is called: sigmas that are not positive or not one per descriptor, a
+    descriptor with neither xy nor a channel, mismatched shapes, devices
+    and layouts, and the kernel's limits. A good call makes one call of the
+    C entry point with the stored channels only, the descriptors' host
+    arrays, and one f64 buffer holding sum k and then the partials."""
+    probs = torch.zeros((2, 5, 7, 4))
+    planes = torch.zeros((2, 5, 7, 1))
+    k = tg._products_kernel
+    for bad_xy in ([0.0], [-6.0], [float("nan")]):
+        with pytest.raises(ValueError, match="positive"):
+            k(probs, planes, 1, [1.0], [1], bad_xy)
+    with pytest.raises(ValueError, match="does not cover"):
+        k(probs, planes, 1, [1.0], [1], [6.0, 6.0])
+    with pytest.raises(ValueError, match="does not cover"):
+        k(probs, planes, 1, [0.9, 0.1], [1, 0], [6.0, None])
+    with pytest.raises(ValueError, match="disagree"):
+        k(probs, torch.zeros((2, 5, 6, 1)), 1, [1.0], [1], [6.0])
+    with pytest.raises(ValueError, match="different devices"):
+        k(probs, planes.to("meta"), 1, [1.0], [1], [6.0])
+    with pytest.raises(ValueError, match="contiguous"):
+        k(probs, torch.zeros((2, 7, 5, 1)).transpose(1, 2), 1, [1.0], [1],
+          [6.0])
+    with pytest.raises(ValueError, match="limits"):
+        k(torch.zeros((65536, 1, 1, 4)), torch.zeros((65536, 1, 1, 1)), 1,
+          [1.0], [1], [6.0])
+    with pytest.raises(ValueError, match="shared memory"):
+        k(probs, planes, 60, [1.0], [1], [6.0])
+    assert fake_lib.calls == [] and tg.launches == {"gated_crf": 0}
+    prod, ksum = k(probs, torch.zeros((2, 5, 7, 1)), 3, [0.9, 0.1], [1, 0],
+                   [6.0, 2.0])
+    (args,) = fake_lib.calls
+    assert args[5:12] == (2, 5, 7, 4, 1, 3, 2)
+    assert prod.shape == probs.shape and ksum.dtype == torch.float64
+    assert tuple(ksum.shape) == (2,) and args[4] == ksum.data_ptr()
+    assert args[3] == ksum.data_ptr() + 8 * 2  # the partials follow ksum
+    w_arr, xy_arr, desc_of = tg._desc_arrays((0.9, 0.1), (1, 0), (6.0, 2.0))
+    assert args[12:15] == tuple(ctypes.addressof(a)
+                                for a in (w_arr, xy_arr, desc_of))
+    assert list(xy_arr) == [6.0, 2.0] and list(desc_of) == [0]
+    assert tg.launches == {"gated_crf": 1}
+    tg.launches["gated_crf"] = 0
+
+
+def test_shared_memory_limit_is_the_kernels():
+    """_smem_bytes mirrors the kernel's layout at 32 x 32 tiles: float4
+    probabilities (classes padded to 4 or 8) on an odd pitch, feature
+    planes on a pitch of 1 mod 8, one x and one y table per descriptor; the
+    default descriptor fits 3 blocks an SM at radius 5."""
+    ph = pw = 42
+    assert tg._smem_bytes(4, 1, 1, 5) == 4 * (4 * ph * 43 + ph * 49 + 84)
+    assert tg._smem_bytes(5, 8, 4, 5) == 4 * (8 * ph * 43 + 8 * ph * 49
+                                              + 4 * 84)
+    assert 3 * tg._smem_bytes(4, 1, 1, 5) <= 228 * 1024
+    assert tg._smem_bytes(8, 8, 4, 13) <= tg._MAX_SMEM
+    assert tg._smem_bytes(8, 8, 4, 14) > tg._MAX_SMEM

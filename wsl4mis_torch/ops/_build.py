@@ -15,12 +15,15 @@ code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -52,7 +55,7 @@ LIBRARIES = {
     "augment": (
         "augment.cu",
         ["-fmad=false"],
-        {"augment": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+        {"augment": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     ),
     "maxpool": (
         "maxpool.cu",
@@ -62,15 +65,14 @@ LIBRARIES = {
             "maxpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         },
     ),
-    # weights and desc_of are host arrays (float[nd], int[F]), copied into
-    # the kernel's by-value arguments
+    # weights, xy sigmas and desc_of are host arrays (float[nd], float[nd],
+    # int[F]), copied into the kernel's by-value arguments
     "gated_crf": (
         "gated_crf.cu",
         [],
         {
-            "gated_crf_blocks": [_I, _I],
-            "gated_crf_products": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _P, _P, _P],
+            "gated_crf_products": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _P, _P, _P, _P],
         },
     ),
 }
@@ -169,3 +171,18 @@ def check(library: str, kernel: str, err: int) -> None:
         msg = _libs[library].wsl_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def on_device(t):
+    """A context in which t's card is the current device (the kernels launch
+    on the current device): a no-op when it already is."""
+    idx = t.device.index
+    if idx == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
+
+
+def stream(t):
+    """The handle of the current stream of t's card, without building a
+    torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -13,7 +13,8 @@ rows of (branch, k, axis, angle):
 
 ``data.augment_device.sample_policy`` draws the policy. A CUDA tensor goes
 to the kernel (or the wrapper raises), a CPU tensor to
-``augment_batch_plain``. ``launches`` counts kernel launches.
+``augment_batch_plain``. ``launches`` counts wrapper calls that launch
+the kernels (one C entry point: the label-fill flags, then the tiles).
 """
 
 from __future__ import annotations
@@ -26,18 +27,22 @@ from . import _build
 
 launches = {"augment": 0}
 
+# label words per fill-flag block (FLAG_CHUNK of csrc/augment.cu)
+_FLAG_CHUNK = 4096
+
 
 def _cos_sin(policy):
-    """(B, 2) f32 cos and sin of the angle in radians, computed in f32."""
-    theta = policy[:, 3].float() * torch.tensor(
-        math.pi / 180.0, dtype=torch.float32, device=policy.device)
-    return torch.stack([torch.cos(theta), torch.sin(theta)], 1).contiguous()
+    """(B, 2) f32 cos and sin of the angle in radians, computed in f32: the
+    angle times f32(pi / 180) (a Python float rounds to that in an f32
+    multiply), as the kernel computes them."""
+    theta = policy[:, 3].float() * (math.pi / 180.0)
+    return torch.stack([torch.cos(theta), torch.sin(theta)], 1)
 
 
 def _label_fill(labels):
     """(B,) int32: 4 where the sample's label holds the ignore class 4."""
     has4 = (labels == 4).flatten(1).any(1)
-    return (has4.to(torch.int32) * 4).contiguous()
+    return has4.to(torch.int32) * 4
 
 
 def augment_batch_plain(images, labels, policy):
@@ -81,6 +86,8 @@ def augment_batch_plain(images, labels, policy):
 
 
 def _augment_kernel(images, labels, policy):
+    """One ctypes call, no PyTorch launch and no host-device sync: the
+    label fill and cos / sin are computed on the card."""
     b, h, w = images.shape
     if images.dtype != torch.float32 or labels.dtype != torch.int32 \
             or policy.dtype != torch.int32:
@@ -91,22 +98,23 @@ def _augment_kernel(images, labels, policy):
                          f"{tuple(policy.shape)} disagree")
     if h != w:
         raise ValueError("augment: rot90 needs square planes")
-    for t in (labels, policy):
-        if t.device != images.device:
-            raise ValueError("augment: operands on different devices")
-    if not all(t.is_contiguous() for t in (images, labels, policy)):
+    if not 1 <= b <= 65535:
+        raise ValueError(f"augment: batch {b} outside 1..65535")
+    if labels.device != images.device or policy.device != images.device:
+        raise ValueError("augment: operands on different devices")
+    if not (images.is_contiguous() and labels.is_contiguous()
+            and policy.is_contiguous()):
         raise ValueError("augment: operands must be contiguous")
-    cos_sin = _cos_sin(policy)
-    fill = _label_fill(labels)
+    flags = torch.empty((b * -(-h * w // _FLAG_CHUNK),), dtype=torch.int32,
+                        device=images.device)
     img_out = torch.empty_like(images)
     lab_out = torch.empty_like(labels)
     lib = _build.lib("augment")
-    with torch.cuda.device(images.device):
+    with _build.on_device(images):
         err = lib.augment(
             images.data_ptr(), labels.data_ptr(), policy.data_ptr(),
-            cos_sin.data_ptr(), fill.data_ptr(), img_out.data_ptr(),
-            lab_out.data_ptr(), b, h, w,
-            torch.cuda.current_stream().cuda_stream)
+            flags.data_ptr(), img_out.data_ptr(), lab_out.data_ptr(), b, h,
+            w, _build.stream(images))
     _build.check("augment", "augment", err)
     launches["augment"] += 1
     return img_out, lab_out

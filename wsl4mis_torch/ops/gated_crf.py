@@ -14,9 +14,13 @@ against an outside neighbour is w * exp(-0.5 ||f(p)||^2), which adds to
 ``sum k`` and nothing to the product term.
 
 * ``gated_crf_products`` is the contraction (prod_c(p) = sum_o k y_c(p+o)
-  and per-image sum k): the CUDA kernel of ``csrc/gated_crf.cu`` for a CUDA
-  tensor (or the wrapper raises), ``gated_crf_products_plain`` for a CPU
-  tensor. ``launches`` counts kernel launches.
+  and per-image sum k): the CUDA kernels of ``csrc/gated_crf.cu`` for a
+  CUDA tensor (or the wrapper raises), ``gated_crf_products_plain`` for a
+  CPU tensor. Given each descriptor's xy sigma (``split_features``), the
+  kernel builds the xy features from the pixel coordinates and reads only
+  the other channels; the plain version builds the full stacked features.
+  ``launches`` counts wrapper calls that launch the kernels (one C entry
+  point: the contraction, then the f64 fold of sum k).
 * ``gated_crf_loss`` routes like the JAX package's dispatch: the default
   surface goes through the ``torch.autograd.Function`` over the
   contraction, whose backward is analytic, grad_probs = -2 g prod / (B H
@@ -28,7 +32,7 @@ against an outside neighbour is w * exp(-0.5 ||f(p)||^2), which adds to
   the Function route.
 
 Sums over pixels are folded in float64 (the kernel's per-block f32 partials
-of sum k, at most 512 * 120 * sum(w) each; the plain loop's per-offset
+of sum k, at most 1024 * 120 * sum(w) each; the plain loop's per-offset
 sums; the product term): sum k is of order 1e7-1e8 at training sizes,
 where one f32 ulp is 1-8, and the loss is a difference of two such sums.
 The loss comes back as f32.
@@ -37,6 +41,7 @@ The loss comes back as f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +57,17 @@ MAX_CLASSES = 8
 MAX_FEATURES = 8
 MAX_DESCRIPTORS = 4
 _MAX_SMEM = 232448
-_TILE = (16, 32)
+_TILE = (32, 32)  # (rows, columns) of a block's tile
+
+
+def _smem_bytes(c, f, nd, radius):
+    """Shared memory of one block (Geom::bytes of csrc/gated_crf.cu): the
+    probabilities as float4s (classes padded to 4 or 8) on an odd pitch,
+    f feature planes on a pitch of 1 mod 8, and nd x / y tables."""
+    ph, pw = _TILE[0] + 2 * radius, _TILE[1] + 2 * radius
+    ncp = 4 if c <= 4 else 8
+    return 4 * (ncp * ph * (pw | 1) + f * ph * (((pw + 6) & ~7) + 1)
+                + nd * (pw + ph))
 
 
 # ---- features and masks ----------------------------------------------------
@@ -88,33 +103,60 @@ def _fix_mask(mask, h, w, custom_modality_downsamplers):
     return torch.where(mask < 1.0, torch.zeros_like(mask), mask)
 
 
-def _features(image, desc, h, w, custom_modality_downsamplers=None):
-    """One descriptor's features scaled by 1/sigma, (B,h,w,nf) f32: the x
-    (column) then y (row) meshes for "xy", the image for anything else."""
-    b = image.shape[0]
-    feats = []
-    for modality, sigma in desc.items():
-        if modality == "weight":
-            continue
-        if modality == "xy":
-            xx = torch.arange(w, dtype=torch.float32, device=image.device)
-            yy = torch.arange(h, dtype=torch.float32, device=image.device)
-            feats.append((xx / sigma).view(1, 1, w, 1).expand(b, h, w, 1))
-            feats.append((yy / sigma).view(1, h, 1, 1).expand(b, h, w, 1))
-        else:
-            feat = _downsample(image.float(), modality, h, w,
-                               custom_modality_downsamplers)
-            feats.append(feat / sigma)
-    return torch.cat(feats, dim=-1)
+def split_features(image, kernels_desc, h, w, downsamplers=None):
+    """(feats (B,h,w,F) f32 contiguous, weights, nf_splits, xy_sigmas): each
+    descriptor's image modalities at prediction resolution, scaled by
+    1/sigma. Descriptor d owns the next nf_splits[d] channels (0 for an
+    xy-only descriptor) and has the x (column) and y (row) meshes /
+    xy_sigmas[d] ahead of them, or none where that is None: the kernel
+    builds those from the coordinates."""
+    planes, splits, xy = [], [], []
+    for desc in kernels_desc:
+        sigma = desc.get("xy")
+        xy.append(None if sigma is None else float(sigma))
+        n = 0
+        for modality, s in desc.items():
+            if modality in ("weight", "xy"):
+                continue
+            feat = _downsample(image.float(), modality, h, w, downsamplers)
+            planes.append(feat / s)
+            n += feat.shape[-1]
+        splits.append(n)
+    weights = [float(d["weight"]) for d in kernels_desc]
+    if not planes:
+        feats = image.new_empty((image.shape[0], h, w, 0), dtype=torch.float32)
+    elif len(planes) == 1:
+        feats = planes[0].contiguous()
+    else:
+        feats = torch.cat(planes, dim=-1).contiguous()
+    return feats, weights, splits, xy
 
 
 def stacked_features(image, kernels_desc, h, w, downsamplers=None):
-    """(feats (B,h,w,F) f32 contiguous, weights, nf_splits) over the
-    descriptor list."""
-    stacks = [_features(image, d, h, w, downsamplers) for d in kernels_desc]
-    weights = [float(d["weight"]) for d in kernels_desc]
-    return (torch.cat(stacks, dim=-1).contiguous(), weights,
-            [s.shape[-1] for s in stacks])
+    """(feats (B,h,w,F) f32 contiguous, weights, nf_splits): every feature
+    of every descriptor, the xy meshes stored too."""
+    feats, weights, splits, xy = split_features(image, kernels_desc, h, w,
+                                                downsamplers)
+    feats, splits = _with_xy(feats, splits, xy)
+    return feats, weights, splits
+
+
+def _with_xy(feats, nf_splits, xy_sigmas):
+    """The full stacked features and their split from split_features'
+    form: each descriptor's x, y meshes / sigma, then its channels."""
+    b, h, w, _ = feats.shape
+    xx = torch.arange(w, dtype=torch.float32, device=feats.device)
+    yy = torch.arange(h, dtype=torch.float32, device=feats.device)
+    stacks, splits = [], []
+    for part, sigma in zip(torch.split(feats, list(nf_splits), dim=-1),
+                           xy_sigmas):
+        cols = [part]
+        if sigma is not None:
+            cols = [(xx / sigma).view(1, 1, w, 1).expand(b, h, w, 1),
+                    (yy / sigma).view(1, h, 1, 1).expand(b, h, w, 1), part]
+        stacks += cols
+        splits.append(sum(c.shape[-1] for c in cols))
+    return torch.cat(stacks, dim=-1).contiguous(), splits
 
 
 # ---- plain PyTorch versions ------------------------------------------------
@@ -153,9 +195,13 @@ def _offset_loop(probs, feats, weights, nf_splits, radius, src_pad=None,
     return prod, ksum
 
 
-def gated_crf_products_plain(probs, feats, radius, weights, nf_splits):
-    """Plain version of the kernel: (prod, ksum) with no autograd graph."""
+def gated_crf_products_plain(probs, feats, radius, weights, nf_splits,
+                             xy_sigmas=None):
+    """Plain version of the kernel: (prod, ksum) with no autograd graph;
+    with xy_sigmas, feats are split_features' (the xy meshes are added)."""
     with torch.no_grad():
+        if xy_sigmas is not None:
+            feats, nf_splits = _with_xy(feats, nf_splits, xy_sigmas)
         return _offset_loop(probs, feats, list(weights), list(nf_splits),
                             radius)
 
@@ -210,10 +256,28 @@ def gated_crf_loss_plain(probs, image, kernels_desc=DEFAULT_KERNELS_DESC,
 # ---- kernel wrapper --------------------------------------------------------
 
 
-def _products_kernel(probs, feats, radius, weights, nf_splits):
+@functools.lru_cache(maxsize=64)
+def _desc_arrays(weights, nf_splits, xy):
+    """The C entry point's host arrays (weights, xy sigmas, desc_of) of one
+    descriptor list, built once."""
+    nd = len(weights)
+    return ((ctypes.c_float * nd)(*weights), (ctypes.c_float * nd)(*xy),
+            (ctypes.c_int * max(sum(nf_splits), 1))(
+                *[d for d, nf in enumerate(nf_splits) for _ in range(nf)]))
+
+
+def _products_kernel(probs, feats, radius, weights, nf_splits,
+                     xy_sigmas=None):
+    """One ctypes call, no PyTorch launch: the contraction and the f64 fold
+    of the per-block partials of sum k."""
     b, h, w, c = probs.shape
     f = feats.shape[-1]
     nd = len(weights)
+    xy_sigmas = (None,) * nd if xy_sigmas is None else tuple(xy_sigmas)
+    if any(s is not None and not float(s) > 0.0 for s in xy_sigmas):
+        raise ValueError(f"gated_crf: xy sigmas {list(xy_sigmas)} must be "
+                         "positive")
+    xy = tuple(0.0 if s is None else float(s) for s in xy_sigmas)  # 0: none
     if probs.dtype != torch.float32 or feats.dtype != torch.float32:
         raise TypeError("gated_crf: probs and feats must be float32")
     if feats.ndim != 4 or tuple(feats.shape[:3]) != (b, h, w):
@@ -223,48 +287,54 @@ def _products_kernel(probs, feats, radius, weights, nf_splits):
         raise ValueError("gated_crf: operands on different devices")
     if not (probs.is_contiguous() and feats.is_contiguous()):
         raise ValueError("gated_crf: operands must be contiguous")
-    if len(nf_splits) != nd or sum(nf_splits) != f or min(nf_splits) < 1:
-        raise ValueError(f"gated_crf: feature split {list(nf_splits)} does "
-                         f"not cover {f} features of {nd} descriptors")
+    if (len(nf_splits) != nd or len(xy) != nd or sum(nf_splits) != f
+            or any(n < 0 or (n == 0 and s == 0.0)
+                   for n, s in zip(nf_splits, xy))):
+        raise ValueError(f"gated_crf: feature split {list(nf_splits)} (xy "
+                         f"{list(xy)}) does not cover {f} features of {nd} "
+                         "descriptors")
     if not (1 <= c <= MAX_CLASSES and f <= MAX_FEATURES
-            and 1 <= nd <= MAX_DESCRIPTORS):
+            and 1 <= nd <= MAX_DESCRIPTORS and 1 <= b <= 65535):
         raise ValueError(
-            f"gated_crf: {c} classes, {f} features, {nd} descriptors exceed "
-            f"the kernel's limits ({MAX_CLASSES}, {MAX_FEATURES}, "
-            f"{MAX_DESCRIPTORS})")
-    smem = (c + f) * (_TILE[0] + 2 * radius) * (_TILE[1] + 2 * radius) * 4
+            f"gated_crf: {c} classes, {f} features, {nd} descriptors, batch "
+            f"{b} exceed the kernel's limits ({MAX_CLASSES}, {MAX_FEATURES}, "
+            f"{MAX_DESCRIPTORS}, 65535)")
+    smem = _smem_bytes(c, f, nd, radius)
     if radius < 0 or smem > _MAX_SMEM:
         raise ValueError(f"gated_crf: radius {radius} needs {smem} bytes of "
                          f"shared memory (limit {_MAX_SMEM})")
+    w_arr, xy_arr, desc_of = _desc_arrays(tuple(map(float, weights)),
+                                          tuple(nf_splits), xy)
     lib = _build.lib("gated_crf")
+    blocks = -(-h // _TILE[0]) * -(-w // _TILE[1])
     prod = torch.empty_like(probs)
-    part = torch.empty((b, lib.gated_crf_blocks(h, w)), dtype=torch.float32,
-                       device=probs.device)
-    w_arr = (ctypes.c_float * nd)(*weights)
-    desc_of = (ctypes.c_int * f)(
-        *[d for d, nf in enumerate(nf_splits) for _ in range(nf)])
-    with torch.cuda.device(probs.device):
+    # ksum (B,) f64, then the f32 partials of sum k (B * blocks) behind it
+    buf = torch.empty((b + -(-b * blocks // 2),), dtype=torch.float64,
+                      device=probs.device)
+    with _build.on_device(probs):
         err = lib.gated_crf_products(
             probs.data_ptr(), feats.data_ptr(), prod.data_ptr(),
-            part.data_ptr(), b, h, w, c, f, radius, nd,
-            ctypes.cast(w_arr, ctypes.c_void_p),
-            ctypes.cast(desc_of, ctypes.c_void_p),
-            torch.cuda.current_stream().cuda_stream)
+            buf.data_ptr() + 8 * b, buf.data_ptr(), b, h, w, c, f, radius,
+            nd, ctypes.addressof(w_arr), ctypes.addressof(xy_arr),
+            ctypes.addressof(desc_of), _build.stream(probs))
     _build.check("gated_crf", "gated_crf", err)
     launches["gated_crf"] += 1
-    # fold the per-block f32 partials in f64 (deterministic)
-    return prod, part.sum(dim=1, dtype=torch.float64)
+    return prod, buf[:b]
 
 
-def gated_crf_products(probs, feats, radius, weights, nf_splits):
+def gated_crf_products(probs, feats, radius, weights, nf_splits,
+                       xy_sigmas=None):
     """probs (B,H,W,C) f32, feats (B,H,W,F) f32 (descriptor d owns the next
     nf_splits[d] channels, weighted weights[d]) -> (prod (B,H,W,C) f32,
-    ksum (B,) f64). No autograd."""
+    ksum (B,) f64). xy_sigmas (split_features): descriptor d also has the
+    x, y meshes / xy_sigmas[d] (None: not), which feats do not hold; without
+    it feats hold every feature. No autograd."""
     if probs.is_cuda:
-        return _products_kernel(probs, feats, radius, weights, nf_splits)
+        return _products_kernel(probs, feats, radius, weights, nf_splits,
+                                 xy_sigmas)
     if probs.device.type == "cpu":
         return gated_crf_products_plain(probs, feats, radius, weights,
-                                        nf_splits)
+                                        nf_splits, xy_sigmas)
     raise RuntimeError(f"no gated_crf implementation for {probs.device}")
 
 
@@ -280,9 +350,9 @@ def _loss_from_products(probs, prod, ksum):
 
 class _GatedCRF(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, probs, feats, radius, weights, nf_splits):
+    def forward(ctx, probs, feats, radius, weights, nf_splits, xy_sigmas):
         prod, ksum = gated_crf_products(probs, feats, radius, weights,
-                                        nf_splits)
+                                        nf_splits, xy_sigmas)
         ctx.save_for_backward(prod)
         return _loss_from_products(probs, prod, ksum)
 
@@ -290,7 +360,7 @@ class _GatedCRF(torch.autograd.Function):
     def backward(ctx, g):
         (prod,) = ctx.saved_tensors
         b, h, w, _ = prod.shape
-        return (-2.0 * g / (b * h * w)) * prod, None, None, None, None
+        return (-2.0 * g / (b * h * w)) * prod, None, None, None, None, None
 
 
 def gated_crf_loss(probs, image, kernels_desc=DEFAULT_KERNELS_DESC,
@@ -305,7 +375,7 @@ def gated_crf_loss(probs, image, kernels_desc=DEFAULT_KERNELS_DESC,
             compatibility, custom_modality_downsamplers)
     _, h, w, _ = probs.shape
     with torch.no_grad():
-        feats, weights, nf_splits = stacked_features(image, kernels_desc,
-                                                      h, w)
+        feats, weights, nf_splits, xy = split_features(image, kernels_desc,
+                                                       h, w)
     return _GatedCRF.apply(probs.float().contiguous(), feats, radius,
-                           tuple(weights), tuple(nf_splits))
+                           tuple(weights), tuple(nf_splits), tuple(xy))
