@@ -56,11 +56,18 @@ failure:
    (UNet, batch 24, 20 steps, one validation), pce (5 steps), dmpls
    (UNet_CCT, batch 6, 10 steps), pce_gatedcrf (UNet, batch 6, 10 steps)
    and 3 untimed steps each of pce_tv, pce_entropy_mini,
-   pce_intensity_variance (batch 24) and pce_mumford_shah (batch 12).
-   Launch counters are zeroed before each
-   run and must show every kernel at its per-step count; losses must be
-   finite and fall for fully_supervised; checkpoints must exist. Then,
-   for the timed runs,
+   pce_intensity_variance (batch 24) and pce_mumford_shah (batch 12);
+   then the semi-supervised slice at batch 12, labeled_bs 6, each through
+   its own make_bundle: uamt (10 steps, one validation; the paired stream
+   over a staged [labeled; unlabeled] stack), ustm (10 steps, scribbles)
+   and 3 untimed steps each of mean_teacher, entropy_minimization,
+   partially_supervised and deep_adversarial. Launch counters are zeroed
+   before each run and must show every kernel at its per-step count
+   (STEP_PASSES: the teacher's and the MC passes' forwards, DAN's eval
+   forwards); losses must be finite and fall for fully_supervised;
+   checkpoints must exist; an EMA teacher must have moved and differ from
+   its student; DAN's discriminator must have taken an Adam update a step.
+   Then, for the timed runs,
    ms/step and slices/s of each step in a synchronized loop of 10 steps,
    and a torch.profiler trace of the same 10 (device kernel time by name,
    the device's busy share).
@@ -80,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -93,6 +101,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N, HW = 24, 256  # fully_supervised / pce batch, slice size
 DMPLS_N = 6  # dmpls and pce_gatedcrf batch
 MS_N = 12  # pce_mumford_shah batch
+SEMI_N = 12  # the semi-supervised methods' and ustm's batch
 EVAL_N = 64  # slices per validation forward (VolumePredictor's chunk)
 FEATURES = (16, 32, 64, 128, 256)
 HBM_BYTES_PER_S = 3.35e12
@@ -161,18 +170,29 @@ def time_ms(fn, reps=12, warmup=3):
     return statistics.median(times)
 
 
-def port_kernel_ms(prof, calls):
-    """Device ms per call (or step) of each of the port's kernels in a
-    torch.profiler trace of `calls` calls."""
+def device_events(prof):
+    """(name, µs) of every device event of a torch.profiler trace, read
+    from the profiler's raw results: prof.events() would first build the
+    tree of every CPU op, which took most of a ten-step uamt profile's
+    time."""
     import torch
 
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        hidden = getattr(e, "is_hidden_event", lambda: False)()
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not hidden:
+            out.append((e.name(), 1e-3 * e.duration_ns()))
+    return out
+
+
+def port_kernel_ms(events, calls):
+    """Device ms per call (or step) of each of the port's kernels among
+    the device events of a trace of `calls` calls."""
     own = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for kernel in PORT_KERNELS:
-                if kernel in e.name:
-                    own[kernel] = own.get(kernel, 0.0) + \
-                        1e-3 * e.time_range.elapsed_us() / calls
+    for name, us in events:
+        for kernel in PORT_KERNELS:
+            if kernel in name:
+                own[kernel] = own.get(kernel, 0.0) + 1e-3 * us / calls
     return own
 
 
@@ -190,7 +210,7 @@ def trace_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return port_kernel_ms(prof, reps)
+    return port_kernel_ms(device_events(prof), reps)
 
 
 def bound(nbytes, flops, dtype):
@@ -617,18 +637,80 @@ def reset_counts():
             d[k] = 0
 
 
-def per_step_counts(model_name, method=None):
-    """Expected launches per training step: every ConvBlock conv is a stats
-    launch, each head a fwd launch, every conv but the stem a dgrad (fwd)
-    launch, every conv a wgrad launch, one augment launch, the encoder's
-    four pools forward and backward, and one GatedCRF contraction for
-    pce_gatedcrf (its backward is an elementwise scale, no launch)."""
+# (train-mode forwards, backwards, eval forwards) a step, where not (1, 1, 0):
+# a semi-supervised step runs the student on the labeled and the unlabeled
+# part apart, the EMA teacher once, UAMT / USTM 4 MC passes of the doubled
+# batch (all under no_grad), DAN the updated segmenter in eval mode on both
+# parts
+STEP_PASSES = {"partially_supervised": (1, 1, 0),
+               "entropy_minimization": (2, 2, 0),
+               "mean_teacher": (3, 2, 0), "uamt": (7, 2, 0),
+               "deep_adversarial": (2, 2, 2), "ustm": (6, 1, 0)}
+SEMI = ("mean_teacher", "uamt", "entropy_minimization",
+        "partially_supervised", "deep_adversarial")  # paired data
+EMA = ("mean_teacher", "uamt", "ustm")  # with an EMA teacher
+
+
+def _unet_sizes(model_name):
+    """(decoders, ConvBlocks, 3x3 convs) of a UNet or UNet_CCT."""
     decoders = 2 if model_name == "unet_cct" else 1
     blocks = 10 + 8 * decoders
-    convs = blocks + decoders
-    return {"conv3x3_fwd_stats": blocks, "conv3x3_fwd": decoders + convs - 1,
-            "conv3x3_wgrad": convs, "augment": 1, "maxpool_fwd": 4,
-            "maxpool_bwd": 4, "gated_crf": int(method == "pce_gatedcrf")}
+    return decoders, blocks, blocks + decoders
+
+
+def eval_counts(model_name):
+    """Launches of one eval-mode forward: every conv a fwd launch, the
+    encoder's four pools."""
+    return {"conv3x3_fwd": _unet_sizes(model_name)[2], "maxpool_fwd": 4}
+
+
+def per_step_counts(model_name, method=None):
+    """Expected launches per training step. A train-mode forward: every
+    ConvBlock conv a stats launch, each head a fwd launch, the encoder's
+    four pools; a backward: every conv but the stem a dgrad (fwd) launch,
+    every conv a wgrad launch, four pool backwards; an eval forward:
+    eval_counts. One augment launch, and one GatedCRF contraction for
+    pce_gatedcrf (its backward is an elementwise scale, no launch)."""
+    fwd, bwd, evl = STEP_PASSES.get(method, (1, 1, 0))
+    decoders, blocks, convs = _unet_sizes(model_name)
+    ev = eval_counts(model_name)
+    return {"conv3x3_fwd_stats": blocks * fwd,
+            "conv3x3_fwd": decoders * fwd + (convs - 1) * bwd
+            + ev["conv3x3_fwd"] * evl,
+            "conv3x3_wgrad": convs * bwd, "augment": 1,
+            "maxpool_fwd": 4 * fwd + ev["maxpool_fwd"] * evl,
+            "maxpool_bwd": 4 * bwd, "gated_crf": int(method == "pce_gatedcrf")}
+
+
+def method_bundle(cfg, data, val):
+    """(cfg.method's bundle on in-memory data, a maker of fresh batch
+    streams like its own). The semi-supervised methods and ustm build
+    theirs with make_bundle (the semi family: data = (labeled, unlabeled),
+    the paired stream over the staged [labeled; unlabeled]); the others as
+    their build() does."""
+    from wsl4mis_torch.engine.methods import get_method
+    from wsl4mis_torch.engine.methods.common import (
+        MethodBundle,
+        index_batches,
+        make_model_and_state,
+        paired_data,
+        stage_dataset,
+    )
+
+    mod = get_method(cfg.method)
+    if cfg.method in SEMI:
+        return (mod.make_bundle(cfg, *data, val),
+                lambda: paired_data(cfg, *data)[1])
+    if cfg.method == "ustm":
+        bundle = mod.make_bundle(cfg, data, val)
+    else:
+        model, state = make_model_and_state(cfg)
+        bundle = MethodBundle(
+            model=model, state=state, step_fn=mod.make_step(cfg),
+            data_iter=index_batches(cfg, data), val_volumes=val,
+            steps_per_epoch=len(data) // cfg.batch_size,
+            aux=stage_dataset(cfg, data))
+    return bundle, lambda: index_batches(cfg, data)
 
 
 def run_method(method, model_name, batch, steps, validate, data, val,
@@ -637,25 +719,21 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     import torch
 
     from wsl4mis_torch.engine.config import TrainConfig
-    from wsl4mis_torch.engine.methods import get_method
-    from wsl4mis_torch.engine.methods.common import (
-        MethodBundle,
-        index_batches,
-        make_model_and_state,
-        stage_dataset,
-    )
     from wsl4mis_torch.engine.trainer import Trainer
 
+    start = time.perf_counter()
     snap_root = os.path.join(ROOT, "build", "chip_smoke", method)
+    dense = method == "fully_supervised" or method in SEMI
     cfg = TrainConfig(
         method=method, model=model_name, batch_size=batch,
+        labeled_bs=batch // 2,
         max_iterations=steps, val_every=(steps if validate else 10 ** 9),
         ckpt_every=steps, log_every=5, compute_dtype="bfloat16",
         snapshot_root=snap_root, seed=seed, device="cuda",
-        sup_type="label" if method == "fully_supervised" else "scribble",
+        sup_type="label" if dense else "scribble",
     )
-    model, state = make_model_and_state(cfg, model_name=model_name)
-    step_fn = get_method(method).make_step(cfg)
+    bundle, new_batches = method_bundle(cfg, data, val)
+    state, step_fn = bundle.state, bundle.step_fn
     losses, vals = [], []
 
     def recording_step(state, batch, rngs, aux=None):
@@ -663,14 +741,14 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         losses.append(m["total_loss"])
         return m
 
-    bundle = MethodBundle(
-        model=model, state=state, step_fn=recording_step,
-        data_iter=index_batches(cfg, data), val_volumes=val,
-        steps_per_epoch=len(data) // batch, aux=stage_dataset(cfg, data))
+    bundle.step_fn = recording_step
+    ema = state.extra["ema_params"] if method in EMA else {}
+    ema_start = {k: v.clone() for k, v in ema.items()}
     trainer = Trainer(cfg, bundle, use_tensorboard=False)
     validate_fn = trainer.validate
     trainer.validate = lambda it: vals.append(validate_fn(it)) or vals[-1]
 
+    gc.collect()  # the earlier runs' bundles (cycles through their Trainer)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     torch.cuda.synchronize()
@@ -682,11 +760,11 @@ def run_method(method, model_name, batch, steps, validate, data, val,
 
     per = per_step_counts(model_name, method)
     expected = {k: v * steps for k, v in per.items()}
-    if validate:  # eval forwards: every conv and pool once per chunk
+    if validate:  # eval forwards, one per chunk of slices
         depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in val)
         chunks = -(-depth // EVAL_N)
-        expected["conv3x3_fwd"] += per["conv3x3_wgrad"] * chunks
-        expected["maxpool_fwd"] += per["maxpool_fwd"] * chunks
+        for k, v in eval_counts(model_name).items():
+            expected[k] += v * chunks
     loss_vals = [float(v) for v in losses]
     rec = {"method": method, "model": model_name, "batch": batch,
            "steps": steps, "launches": counts, "expected": expected,
@@ -701,24 +779,39 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     for name in (f"iter_{steps}.pth", "latest_full.ckpt"):
         expect(os.path.isfile(os.path.join(cfg.snapshot_path, name)),
                f"{method}: checkpoint {name} missing")
+    if ema:  # the teacher follows the student, and lags it
+        student = {k: p.detach() for k, p in bundle.model.named_parameters()}
+        rec["ema_moved"] = max(float((ema[k] - ema_start[k]).abs().max())
+                               for k in ema)
+        rec["ema_student_gap"] = max(float((ema[k] - student[k]).abs().max())
+                                     for k in ema)
+        expect(rec["ema_moved"] > 0 and rec["ema_student_gap"] > 0,
+               f"{method}: EMA teacher moved {rec['ema_moved']}, from the "
+               f"student {rec['ema_student_gap']}")
+    if method == "deep_adversarial":
+        adam = state.extra["disc_opt_state"]
+        expect(adam["count"] == steps and all(
+            float(m.abs().max()) > 0 for m in adam["mu"].values()),
+            f"{method}: discriminator Adam count {adam['count']}")
 
     if time_steps:
-        rec.update(time_step(step_fn, state, bundle.aux, cfg, data, seed,
-                             time_steps))
+        it = new_batches()
+        rec.update(time_step(step_fn, state, bundle.aux, cfg,
+                             [next(it) for _ in range(time_steps)], seed))
+    rec["run_s"] = time.perf_counter() - start
     print("slice-run " + json.dumps(rec), flush=True)
     return rec
 
 
-def time_step(step_fn, state, aux, cfg, data, seed, time_steps):
-    """Steady-state step time (a synchronized loop over `time_steps` steps
-    after one warm step), the host's share of it, peak memory, and a
-    profile of the same steps."""
+def time_step(step_fn, state, aux, cfg, batches, seed):
+    """Steady-state step time (a synchronized loop over the batches after
+    one warm step), the host's share of it, peak memory, and a profile of
+    the same steps."""
     import torch
 
-    from wsl4mis_torch.engine.methods.common import index_batches, split_rngs
+    from wsl4mis_torch.engine.methods.common import split_rngs
 
-    it = index_batches(cfg, data)
-    batches = [next(it) for _ in range(time_steps)]
+    time_steps = len(batches)
     rngs = [split_rngs(seed, 1000 + i, "cuda") for i in range(time_steps)]
     step_fn(state, batches[0], rngs[0], aux)  # warm
     torch.cuda.synchronize()
@@ -752,17 +845,16 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
             step_fn(state, bt, rg, aux)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    events = device_events(prof)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
     busy_us = sum(by_name.values())
     expect(busy_us > 0, "profile: no device time recorded")
     steps = len(batches)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"ms_per_step": 1e-3 * wall_us / steps,
-            "port_kernels_ms_per_step": port_kernel_ms(prof, steps),
+            "port_kernels_ms_per_step": port_kernel_ms(events, steps),
             "device_busy_ms_per_step": 1e-3 * busy_us / steps,
             "device_busy_share": busy_us / wall_us,
             "top_kernels_ms_per_step": [[name[:80], 1e-3 * us / steps]
@@ -1154,7 +1246,11 @@ def main(argv=None):
         return 2
     import numpy as np
 
-    from wsl4mis_torch.data import synthetic_slices, synthetic_volumes
+    from wsl4mis_torch.data import (
+        ArraySliceDataset,
+        synthetic_slices,
+        synthetic_volumes,
+    )
     from wsl4mis_torch.ops import _build
     from wsl4mis_torch.ops.gated_crf import DEFAULT_KERNELS_DESC
 
@@ -1171,6 +1267,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.load_all()
     build_s = time.perf_counter() - t0
+    phase_s = {"build": build_s}
     print(f"build: {sorted(_build.LIBRARIES)} in {build_s:.1f} s", flush=True)
     ptxas = [f"{name}: {line.strip()}"
              for name, log in sorted(_build.build_logs.items())
@@ -1238,6 +1335,7 @@ def main(argv=None):
     recs += check_gated_crf(2, 40, 72, 3, TWO_DESC, False, args.seed + 2,
                             "two descriptors", stored_xy=True)
 
+    phase_s["kernels"] = time.perf_counter() - t0 - build_s
     data = synthetic_slices(480, (HW, HW), seed=args.seed)
     scribbles = synthetic_slices(480, (HW, HW), seed=args.seed,
                                  sup_type="scribble")
@@ -1256,10 +1354,27 @@ def main(argv=None):
                           ("pce_intensity_variance", N)):
         runs.append(run_method(method, "unet", batch, 3, False, scribbles,
                                val, args.seed, time_steps=0))
+    # slice 3: the semi-supervised family on a labeled tenth and the rest
+    # unlabeled (dense labels on both, as its build reads them), ustm on the
+    # scribbles; batch 12, labeled_bs 6
+    labeled = ArraySliceDataset(data.images[:48], data.labels[:48])
+    unlabeled = ArraySliceDataset(data.images[48:], data.labels[48:])
+    runs.append(run_method("uamt", "unet", SEMI_N, 10, True,
+                           (labeled, unlabeled), val, args.seed))
+    runs.append(run_method("ustm", "unet", SEMI_N, 10, False, scribbles, val,
+                           args.seed))
+    for method in ("mean_teacher", "entropy_minimization",
+                   "partially_supervised", "deep_adversarial"):
+        runs.append(run_method(method, "unet", SEMI_N, 3, False,
+                               (labeled, unlabeled), val, args.seed,
+                               time_steps=0))
     fs = runs[0]["losses"]
     expect(np.mean(fs[-5:]) < np.mean(fs[:5]),
            f"fully_supervised loss did not fall: {fs}")
+    phase_s["training"] = time.perf_counter() - t0 - sum(phase_s.values())
     ref = reference_check(args.seed)
+    phase_s["reference"] = time.perf_counter() - t0 - sum(phase_s.values())
+    print("phase-s " + json.dumps(phase_s), flush=True)
 
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
@@ -1270,7 +1385,8 @@ def main(argv=None):
     for row in table:
         print(f"conv-table {row}", flush=True)
     detail = {"card": card, "torch": torch.__version__,
-              "build_s": build_s, "ptxas": ptxas, "sass_mma": sass,
+              "build_s": build_s, "phase_s": phase_s, "ptxas": ptxas,
+              "sass_mma": sass,
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs,

@@ -1,6 +1,7 @@
 """chip_smoke.py off the card (on the CPU): it refuses to run without CUDA,
 the conv and pool shapes and per-step launch counts it holds the card's run
-to are those of the port's UNet and UNet_CCT training steps, its pool and
+to are those of the port's UNet and UNet_CCT training steps (the
+semi-supervised ones through the bundles it builds), its pool and
 GatedCRF checks run (plain against plain) at tiny sizes, its kernel summary
 lists every kernel with every key, and its reference check's known-wrong
 variant runs every conv kernel in bf16."""
@@ -17,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
-from wsl4mis_torch.data import augment_device  # noqa: E402
+from wsl4mis_torch.data import augment_device, synthetic_slices  # noqa: E402
 from wsl4mis_torch.engine.config import TrainConfig  # noqa: E402
 from wsl4mis_torch.engine.methods import get_method  # noqa: E402
 from wsl4mis_torch.engine.methods.common import split_rngs  # noqa: E402
@@ -76,11 +77,16 @@ def test_pool_shapes_are_the_unets(monkeypatch):
 
 @pytest.mark.parametrize("method,model_name", [
     ("fully_supervised", "unet"), ("dmpls", "unet_cct"),
-    ("pce_gatedcrf", "unet"), ("pce_tv", "unet")])
+    ("pce_gatedcrf", "unet"), ("pce_tv", "unet"),
+    ("mean_teacher", "unet"), ("uamt", "unet"),
+    ("entropy_minimization", "unet"), ("partially_supervised", "unet"),
+    ("deep_adversarial", "unet"), ("ustm", "unet")])
 def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
     """One train step on the CPU, counting the calls that reach each
     wrapper (on the card each is one launch): chip_smoke's expected
-    per-step counts."""
+    per-step counts. The semi-supervised methods and ustm step through
+    chip_smoke.method_bundle (full width at 32x32, batch 4, labeled_bs 2;
+    the semi family on a paired index batch over a staged stack)."""
     calls = {k: 0 for k in chip_smoke.per_step_counts(model_name, method)}
 
     def counted(name, fn):
@@ -98,23 +104,41 @@ def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
         monkeypatch.setattr(tpool, fn, counted(name, getattr(tpool, fn)))
     monkeypatch.setattr(tgcrf, "gated_crf_products",
                         counted("gated_crf", tgcrf.gated_crf_products))
-    cfg = TrainConfig(method=method, device="cpu", batch_size=2,
-                      compute_dtype="float32")
-    model = net_factory(model_name, 4, dtype=torch.float32,
-                        features=(4, 8, 8, 16, 16))
-    state = TrainState(model=model, opt=ReferenceSGD(
-        model.parameters(), cfg.base_lr, cfg.max_iterations))
-    rs = np.random.RandomState(0)
-    staged = {"images": torch.from_numpy(
-        rs.standard_normal((4, 32, 32)).astype(np.float32)),
-        "labels": torch.from_numpy(rs.randint(0, 5, (4, 32, 32)).astype(
-            np.uint8))}
-    get_method(method).make_step(cfg)(
-        state, {"index": np.array([0, 2], np.int32)},
-        split_rngs(0, 0, "cpu"), staged)
+    if method in chip_smoke.STEP_PASSES:
+        cfg = TrainConfig(method=method, device="cpu", batch_size=4,
+                          labeled_bs=2, patch_size=(32, 32),
+                          compute_dtype="float32")
+        data = (synthetic_slices(4, (32, 32), seed=1),
+                synthetic_slices(6, (32, 32), seed=2))
+        if method == "ustm":
+            data = synthetic_slices(6, (32, 32), seed=3, sup_type="scribble")
+        bundle, _ = chip_smoke.method_bundle(cfg, data, None)
+        batch = next(bundle.data_iter)
+        bundle.step_fn(bundle.state, batch, split_rngs(0, 0, "cpu"),
+                       bundle.aux)
+        if method in chip_smoke.SEMI:
+            assert (batch["index"][:2] < 4).all()
+            assert (batch["index"][2:] >= 4).all()
+    else:
+        cfg = TrainConfig(method=method, device="cpu", batch_size=2,
+                          compute_dtype="float32")
+        model = net_factory(model_name, 4, dtype=torch.float32,
+                            features=(4, 8, 8, 16, 16))
+        state = TrainState(model=model, opt=ReferenceSGD(
+            model.parameters(), cfg.base_lr, cfg.max_iterations))
+        rs = np.random.RandomState(0)
+        staged = {"images": torch.from_numpy(
+            rs.standard_normal((4, 32, 32)).astype(np.float32)),
+            "labels": torch.from_numpy(rs.randint(0, 5, (4, 32, 32)).astype(
+                np.uint8))}
+        get_method(method).make_step(cfg)(
+            state, {"index": np.array([0, 2], np.int32)},
+            split_rngs(0, 0, "cpu"), staged)
     assert calls == chip_smoke.per_step_counts(model_name, method)
     assert calls["gated_crf"] == (method == "pce_gatedcrf")
-    assert calls["maxpool_fwd"] == calls["maxpool_bwd"] == 4
+    fwd, bwd, evl = chip_smoke.STEP_PASSES.get(method, (1, 1, 0))
+    assert calls["maxpool_fwd"] == 4 * (fwd + evl)
+    assert calls["maxpool_bwd"] == 4 * bwd
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -429,3 +453,22 @@ def test_spill_check_covers_conv_augment_and_gated_crf():
         assert chip_smoke.spilling(lines + [f"{lib}: {dirty}"]) == \
             [f"{lib}: {dirty}"]
     assert chip_smoke.spilling([f"maxpool: {dirty}"]) == []
+
+
+def test_port_kernel_ms_sums_each_kernel_per_call():
+    """port_kernel_ms sums the device µs of each of the port's kernels over
+    a trace's device events, per call, and nothing else; device_events
+    finds no device event in a CPU-only trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    events = [("void (anonymous namespace)::conv3x3_fwd_mma_kernel<16, "
+               "true>(...)", 30.0),
+              ("conv3x3_fwd_mma_kernel<64, false>", 10.0),
+              ("conv3x3_wgrad_kernel<float, 4, 16>", 4.0),
+              ("void at::native::elementwise_kernel<128, 4>", 50.0)]
+    assert chip_smoke.port_kernel_ms(events, 2) == {
+        "conv3x3_fwd_mma_kernel": pytest.approx(0.02),
+        "conv3x3_wgrad_kernel": pytest.approx(0.002)}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(3).add_(1)
+    assert chip_smoke.device_events(prof) == []

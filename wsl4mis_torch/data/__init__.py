@@ -5,9 +5,10 @@ from .acdc import (
     AcdcVolumeDataset,
     default_acdc_root,
     fold_ids,
+    labeled_patient_ids,
 )
 from .augment_device import augment_batch, sample_policy
-from .loader import batch_iterator, prefetch
+from .loader import batch_iterator, paired_iterator, prefetch
 from .synthetic import ArraySliceDataset, synthetic_slices, synthetic_volumes
 
 __all__ = [
@@ -18,6 +19,8 @@ __all__ = [
     "batch_iterator",
     "default_acdc_root",
     "fold_ids",
+    "labeled_patient_ids",
+    "paired_iterator",
     "prefetch",
     "sample_policy",
     "synthetic_slices",

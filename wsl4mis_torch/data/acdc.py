@@ -7,6 +7,8 @@
   precomputed ``random_walker``); slices are order-0 zoomed to the patch
   size once at load time.
 * The val split reads whole volumes under ``ACDC_training_volumes/``.
+* The semi-supervised split (``labeled_type``) labels the patients whose
+  number is a multiple of 10 among a fold's train patients.
 
 ``h5py`` is imported inside the readers only, so the package imports
 without it.
@@ -48,6 +50,15 @@ def fold_ids(fold: str) -> tuple[list[str], list[str]]:
     return [c for c in ALL_CASES if c not in testing], sorted(testing)
 
 
+def labeled_patient_ids(fold: str) -> tuple[list[str], list[str]]:
+    """(labeled, unlabeled) train patients of a fold: the labeled ones are
+    the multiples of 10 (dataset_semi.py:27-34)."""
+    train, _ = fold_ids(fold)
+    all_labeled = ["patient{:0>3}".format(10 * i) for i in range(1, 11)]
+    labeled = [c for c in all_labeled if c in train]
+    return labeled, [c for c in train if c not in labeled]
+
+
 def _nearest_zoom2d(arr: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     """scipy.ndimage.zoom(arr, scale, order=0) by explicit index math:
     output i samples input i * (in-1)/(out-1), rounded half up."""
@@ -68,11 +79,14 @@ class AcdcSliceDataset:
 
     images (N,H,W) float32; labels (N,H,W) int32 per ``sup_type``
     (scribbles mark unannotated pixels 4); dense_labels the ``label`` key.
+    ``labeled_type`` "labeled" / "unlabeled" keeps the slices of one side
+    of ``labeled_patient_ids``; None keeps every train patient's.
     """
 
     base_dir: str | None = None
     fold: str = "fold1"
     sup_type: str = "label"
+    labeled_type: str | None = None
     patch_size: tuple[int, int] = (256, 256)
     limit: int | None = None
     slices_dirname: str = "ACDC_training_slices"
@@ -88,7 +102,12 @@ class AcdcSliceDataset:
 
         base = self.base_dir or default_acdc_root()
         slices_dir = os.path.join(base, self.slices_dirname)
-        wanted = set(fold_ids(self.fold)[0])
+        if self.labeled_type is None:
+            wanted = fold_ids(self.fold)[0]
+        else:
+            labeled, unlabeled = labeled_patient_ids(self.fold)
+            wanted = labeled if self.labeled_type == "labeled" else unlabeled
+        wanted = set(wanted)
         names = sorted(
             f for f in os.listdir(slices_dir) if f.split("_")[0] in wanted
         )

@@ -1,5 +1,6 @@
 """Batch iteration over RAM-cached datasets (port of
-``wsl4mis_tpu/data/loader.py``): an epoch-shuffled index stream, and a
+``wsl4mis_tpu/data/loader.py``): an epoch-shuffled index stream, its
+labeled + unlabeled pairing for the semi-supervised methods, and a
 background-thread prefetch."""
 
 from __future__ import annotations
@@ -50,3 +51,21 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0,
             if include_index:
                 batch["index"] = idx
             yield batch
+
+
+def paired_iterator(labeled, unlabeled, labeled_bs: int, unlabeled_bs: int,
+                    seed: int = 0) -> Iterator[dict]:
+    """Semi-supervised index batches {"index": (labeled_bs + unlabeled_bs,)
+    int32} into the stack [labeled; unlabeled] (unlabeled indices offset by
+    len(labeled)), in the order of the JAX package's paired_iterator, which
+    ships the images: labeled first, the labeled stream cycling and the
+    epoch keyed to the unlabeled one (train_mean_teacher_2D.py:106-138)."""
+    lab_it = batch_iterator(labeled, labeled_bs, seed=seed,
+                            include_index=True)
+    unlab_it = batch_iterator(unlabeled, unlabeled_bs, seed=seed + 1,
+                              include_index=True)
+    offset = len(labeled)
+    while True:
+        lab, unlab = next(lab_it)["index"], next(unlab_it)["index"]
+        yield {"index": np.concatenate([lab, unlab + offset]).astype(
+            np.int32)}

@@ -24,7 +24,10 @@ class TrainConfig:
     patch_size: tuple[int, int] = (256, 256)
     seed: int = 2022
 
-    # consistency weight and its sigmoid ramp (pce_intensity_variance)
+    # semi-supervised flags (train_mean_teacher_2D.py:50-69); consistency
+    # and its sigmoid ramp also weigh pce_intensity_variance's term
+    labeled_bs: int = 8
+    ema_decay: float = 0.99
     consistency: float = 0.1
     consistency_rampup: float = 200.0
 

@@ -1,8 +1,10 @@
 """Training methods of the port. ``get_method(name)`` returns the module;
 each exposes ``build(cfg) -> MethodBundle`` and ``make_step(cfg)``.
 
-Ported so far: fully_supervised, pce, dmpls and the five pCE + regularizer
-methods of ``pce_regularized``; the other methods of the JAX package raise
+Ported so far: fully_supervised, pce, dmpls, the five pCE + regularizer
+methods of ``pce_regularized``, the semi-supervised mean_teacher, uamt,
+entropy_minimization and partially_supervised of ``mean_teacher``,
+deep_adversarial and ustm; the other methods of the JAX package raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -19,15 +21,16 @@ _METHODS = {
     "pce_gatedcrf": "pce_regularized",
     "pce_mumford_shah": "pce_regularized",
     "pce_intensity_variance": "pce_regularized",
+    "mean_teacher": "mean_teacher",
+    "uamt": "mean_teacher",
+    "entropy_minimization": "mean_teacher",
+    "partially_supervised": "mean_teacher",
+    "deep_adversarial": "deep_adversarial",
+    "ustm": "ustm",
 }
 
 # method -> ROADMAP.md Queue 1 item that ports it
-_NOT_YET = {
-    "pce_random_walker": 15,
-    "mean_teacher": 11, "uamt": 11, "entropy_minimization": 11,
-    "partially_supervised": 11, "deep_adversarial": 11,
-    "s2l": 12, "ustm": 12, "scribblevc": 13,
-}
+_NOT_YET = {"pce_random_walker": 15, "s2l": 12, "scribblevc": 13}
 
 
 def get_method(name: str):

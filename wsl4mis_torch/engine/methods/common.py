@@ -12,8 +12,10 @@ import torch
 from ...data import (
     AcdcSliceDataset,
     AcdcVolumeDataset,
+    ArraySliceDataset,
     augment_batch,
     batch_iterator,
+    paired_iterator,
 )
 from ...models import net_factory
 from ...ops import losses
@@ -72,6 +74,42 @@ def index_batches(cfg: TrainConfig, train) -> Iterator[dict]:
     it = batch_iterator(train, cfg.batch_size, seed=cfg.seed,
                         include_index=True)
     return ({"index": b["index"].astype(np.int32)} for b in it)
+
+
+def resolve_labeled_bs(cfg: TrainConfig) -> int:
+    """The semi-supervised split [labeled_bs labeled, batch_size -
+    labeled_bs unlabeled]: cfg.labeled_bs if 0 < it < batch_size, else
+    half the batch."""
+    if 0 < cfg.labeled_bs < cfg.batch_size:
+        return cfg.labeled_bs
+    return cfg.batch_size // 2
+
+
+def semi_datasets(cfg: TrainConfig):
+    """The labeled and unlabeled train slices of the fold (dense labels on
+    both, whatever cfg.sup_type says) and its val volumes."""
+    labeled, unlabeled = (
+        AcdcSliceDataset(base_dir=cfg.root_path, fold=cfg.fold,
+                         sup_type="label", labeled_type=side,
+                         patch_size=cfg.patch_size, limit=cfg.data_limit)
+        for side in ("labeled", "unlabeled"))
+    val = AcdcVolumeDataset(base_dir=cfg.root_path, fold=cfg.fold,
+                            limit=(4 if cfg.data_limit else None))
+    return labeled, unlabeled, val
+
+
+def paired_data(cfg: TrainConfig, labeled, unlabeled):
+    """(the stack [labeled; unlabeled] to stage, its paired index-batch
+    stream, steps per epoch: the unlabeled slices over the unlabeled
+    batch)."""
+    labeled_bs = resolve_labeled_bs(cfg)
+    unlabeled_bs = cfg.batch_size - labeled_bs
+    stack = ArraySliceDataset(
+        np.concatenate([labeled.images, unlabeled.images]),
+        np.concatenate([labeled.labels, unlabeled.labels]))
+    it = paired_iterator(labeled, unlabeled, labeled_bs, unlabeled_bs,
+                         seed=cfg.seed)
+    return stack, it, len(unlabeled) // unlabeled_bs
 
 
 def stage_dataset(cfg: TrainConfig, train) -> dict:

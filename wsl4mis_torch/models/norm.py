@@ -9,6 +9,9 @@
   torch.nn.BatchNorm2d would store the unbiased one, so it is not used).
 * The apply is ``x * mul + add`` with mul, add computed in f32 and cast to
   x's dtype.
+* ``update_stats = False`` leaves the running statistics alone in train
+  mode: an EMA teacher normalises by batch statistics as the student does
+  but keeps none (the JAX package discards the teacher's mutation).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ class FusedBatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
+        self.update_stats = True
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -38,10 +42,11 @@ class FusedBatchNorm(nn.Module):
             s1, s2 = moments
             mean, mean2 = s1 / n, s2 / n
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         mul = self.scale * torch.rsqrt(var + self.epsilon)
         add = self.bias - mean * mul
         return x * mul.to(x.dtype) + add.to(x.dtype)

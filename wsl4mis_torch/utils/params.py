@@ -1,9 +1,10 @@
 """Bridge from the JAX package's flax variables to the port's modules.
 
 The flax tree ``{"params": ..., "batch_stats": ...}`` (nested dicts of
-numpy arrays) of a UNet or UNetCCT maps onto the port's state_dict by
-renaming alone: both store conv kernels HWIO, transposed-conv kernels
-(2,2,C,O) and BN scale/bias/mean/var in f32.
+numpy arrays) of a UNet, UNetCCT or FCDiscriminator maps onto the port's
+state_dict by renaming alone: both store conv kernels HWIO, transposed-conv
+kernels (2,2,C,O), dense kernels (in, out) and BN scale/bias/mean/var in
+f32.
 
     Encoder_0 / ConvBlock_i            -> encoder.blocks.i
     Decoder_0 | main_decoder | aux_decoder1 -> decoder | main_decoder | aux_decoder1
@@ -13,6 +14,8 @@ renaming alone: both store conv kernels HWIO, transposed-conv kernels
     TorchConv_1 / Conv_0               -> conv2
     TorchConvTranspose_0 / ConvTranspose_0 -> up
     BatchNorm_0 | BatchNorm_1          -> bn1 | bn2
+    _Conv4x4s2_i / Conv_0  (FCDiscriminator) -> convs.i
+    Dense_0                            -> dense
 """
 
 from __future__ import annotations
@@ -54,6 +57,11 @@ def _torch_key(path: tuple[str, ...]) -> str:
             i += 1  # the nested ConvTranspose_0
         elif p in ("BatchNorm_0", "BatchNorm_1"):
             out.append("bn1" if p == "BatchNorm_0" else "bn2")
+        elif p.startswith("_Conv4x4s2_"):
+            out += ["convs", p.split("_")[2]]
+            i += 1  # the nested Conv_0
+        elif p == "Dense_0":
+            out.append("dense")
         else:
             out.append(p)
         parent = kind
@@ -80,6 +88,6 @@ def from_flax(variables_np) -> dict[str, torch.Tensor]:
 
 
 def load_flax_variables(model: torch.nn.Module, variables_np) -> None:
-    """Fill `model` (UNet or UNetCCT) from a flax variable tree; strict, so
-    a missing or extra entry raises."""
+    """Fill `model` (UNet, UNetCCT or FCDiscriminator) from a flax variable
+    tree; strict, so a missing or extra entry raises."""
     model.load_state_dict(from_flax(variables_np), strict=True)
