@@ -16,14 +16,16 @@ failure:
    PyTorch version on the card, at the paths' shapes (every UNet 3x3 conv
    at 256x256, in bf16 and f32: forward, forward + moments, input
    gradient and weight gradient at batch 24, 12 and 6, the forward
-   alone at the validation's 64-slice chunk; the augmentation on all
-   three branches at batch 24, 12 and 6, and every policy the sampler
-   draws (the 40 angles, the 8 rot90 / flip pairs, the identity) on
-   planes of 256, 200 (no multiple of the 32-pixel tile) and 54 (no
-   multiple of 4: the 4-byte route); the 2x2 max pool at the four
+   alone at the validation's 64-slice chunk and the s2l refresh's 32;
+   the augmentation on all three branches at batch 24, 12 and 6, and
+   every policy the sampler draws (the 40 angles, the 8 rot90 / flip
+   pairs, the identity) on planes of 256, 200 (no multiple of the
+   32-pixel tile) and 54 (no multiple of 4: the 4-byte route), and the
+   same for its S2L variant (image, scribble and f32 weight rows, every
+   map filled with 0) at batch 12 and 32; the 2x2 max pool at the four
    encoder levels, forward and backward at batch 24, 12 and 6 and the
-   forward at 64, in bf16 and f32, on a tie-heavy input drawn from five
-   levels and on a random one; the GatedCRF contraction, loss and
+   forward at 64 and 32, in bf16 and f32, on a tie-heavy input drawn
+   from five levels and on a random one; the GatedCRF contraction, loss and
    gradient at (B, 256, 256), radius 5, for B = 6 and 24 with the default
    descriptor, at a ragged 40x72 with the default descriptor at radius 3
    and 5 and with two descriptors, the xy features built from the
@@ -33,16 +35,17 @@ failure:
    tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
    and every batch-24 bf16 conv launch is repeated and must be bit-equal.
    The host time of one call of each conv wrapper, the augment wrapper at
-   batch 24 and the GatedCRF wrapper at batch 6 is recorded
-   (wrapper_host_us), and one call of each of the last two runs under
-   torch.cuda.set_sync_debug_mode("error"): a host-device sync fails the
-   run. The batch-24 bf16 launches (GatedCRF: batch 6, its training
-   batch, and 24; f32) are timed:
+   batch 24, its S2L variant at 12 and the GatedCRF wrapper at batch 6 is
+   recorded (wrapper_host_us), and one call of each of the last three
+   runs under torch.cuda.set_sync_debug_mode("error"): a host-device sync
+   fails the run. The batch-24 bf16 launches (GatedCRF: batch 6, its
+   training batch, and 24; f32; the S2L augment: batch 12) are timed:
    CUDA-event medians of 12 calls after 3 warm-up calls (the augment and
    GatedCRF calls also in a torch.profiler trace of 10 calls: the
    kernels alone, kernel_ms), for the kernel, its plain version and,
    where one PyTorch call
-   computes the same function, that call (library_ms; cuDNN's
+   computes the same function, that call (library_ms; the S2L augment's
+   trace must hold augment_s2l_kernel alone, no fill-flag kernel; cuDNN's
    conv, F.max_pool2d and its backward on a channels-last view). bound_ms
    is max(bytes / 3.35 TB/s, flops / peak) with bf16 at 989 TFLOP/s and
    f32 at 67 TFLOP/s (H100 SXM data sheet). Tolerances:
@@ -61,13 +64,21 @@ failure:
    its own make_bundle: uamt (10 steps, one validation; the paired stream
    over a staged [labeled; unlabeled] stack), ustm (10 steps, scribbles)
    and 3 untimed steps each of mean_teacher, entropy_minimization,
-   partially_supervised and deep_adversarial. Launch counters are zeroed
-   before each run and must show every kernel at its per-step count
-   (STEP_PASSES: the teacher's and the MC passes' forwards, DAN's eval
-   forwards); losses must be finite and fall for fully_supervised;
+   partially_supervised and deep_adversarial; then slice 4: s2l (batch
+   12, 10 steps, a refresh every 5 and the pseudo-label term open from
+   step 5) and 3 untimed steps of pce_random_walker (batch 24) on the
+   random walker's labels of 24 scribble slices (host scipy, timed).
+   Launch counters are zeroed before each run and must show every kernel
+   at its per-step count (STEP_PASSES: the teacher's and the MC passes'
+   forwards, DAN's eval forwards; s2l's refreshes: an eval forward per
+   32-slice chunk); losses must be finite and fall for fully_supervised;
    checkpoints must exist; an EMA teacher must have moved and differ from
-   its student; DAN's discriminator must have taken an Adam update a step.
-   Then, for the timed runs,
+   its student; DAN's discriminator must have taken an Adam update a step;
+   s2l's buffer must have moved and its pseudo-label loss be non-zero
+   once open, and one more refresh must launch exactly its chunks' eval
+   forwards and leave the first chunk's rows at alpha * softmax + (1 -
+   alpha) * w within 1e-6 of a separate eval forward (then its wall and
+   device ms are recorded). Then, for the timed runs,
    ms/step and slices/s of each step in a synchronized loop of 10 steps,
    and a torch.profiler trace of the same 10 (device kernel time by name,
    the device's busy share).
@@ -101,8 +112,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N, HW = 24, 256  # fully_supervised / pce batch, slice size
 DMPLS_N = 6  # dmpls and pce_gatedcrf batch
 MS_N = 12  # pce_mumford_shah batch
-SEMI_N = 12  # the semi-supervised methods' and ustm's batch
+SEMI_N = 12  # the semi-supervised methods', ustm's and s2l's batch
 EVAL_N = 64  # slices per validation forward (VolumePredictor's chunk)
+REFRESH_N = 32  # slices per eval forward of s2l's refresh sweep
+RW_SLICES = 24  # synthetic slices labelled by the random walker (host scipy)
 FEATURES = (16, 32, 64, 128, 256)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -117,6 +130,7 @@ GCRF_RADIUS = 5
 PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
                 "conv3x3_fwd_mma_kernel", "conv3x3_wgrad_mma_kernel",
                 "augment_fill_kernel", "augment_kernel",
+                "augment_s2l_kernel",
                 "maxpool_fwd_kernel", "maxpool_bwd_kernel",
                 "gated_crf_kernel", "gated_crf_fold_kernel")
 # the libraries whose ptxas report must show no spill
@@ -386,68 +400,93 @@ def bit_equal(a, b):
     return bool(torch.equal(a, b))
 
 
-def augment_inputs(gen, b, h, dev="cuda"):
+def augment_inputs(gen, b, h, dev="cuda", s2l=False):
     """A (b, h, h) image batch and int32 labels in 0..4, the first half of
-    the samples without the ignore class 4."""
+    the samples without the ignore class 4; for s2l also (b, h, h, 4) f32
+    weight rows in [0, 1)."""
     import torch
 
     images = torch.randn((b, h, h), generator=gen, device=dev)
     labels = torch.randint(0, 5, (b, h, h), generator=gen, device=dev,
                            dtype=torch.int32)
     labels[: b // 2] = labels[: b // 2].clamp(max=3)  # half without class 4
+    if s2l:
+        return images, labels, torch.rand((b, h, h, 4), generator=gen,
+                                          device=dev)
     return images, labels
 
 
-def augment_record(case, images, labels, policy, timed):
-    """The augment kernel against its plain version: every pixel equal."""
-    import torch
-
+def augment_record(case, maps, policy, timed):
+    """The augment kernel against its plain version: every pixel equal.
+    maps: (images, labels) for K4, (images, scribbles, weights) for its
+    S2L variant (every map filled with 0, no fill-flag kernel: a timed
+    record's trace must show augment_s2l_kernel alone)."""
     from wsl4mis_torch.ops import augment as ag
 
-    b, h, _ = images.shape
-    img, lab = ag.augment_batch(images, labels, policy)
-    img_p, lab_p = ag.augment_batch_plain(images, labels, policy)
-    mismatched = int((img != img_p).sum() + (lab != lab_p).sum())
-    rec = {"kernel": "augment", "case": case, "shape": [b, h, h],
-           "dtype": "float32+int32",
-           "max_abs_err": float((img - img_p).abs().max()),
+    s2l = len(maps) == 3
+    b, h, _ = maps[0].shape
+    if s2l:
+        def kernel():
+            return ag.augment_batch_s2l(*maps, policy)
+
+        def plain():
+            return ag.augment_batch_plain(maps[0], maps[1], policy,
+                                          weights=maps[2], label_fill=0)
+        name, dtype, px_bytes = "augment_s2l", "float32+int32+float32x4", 48
+    else:
+        def kernel():
+            return ag.augment_batch(*maps, policy)
+
+        def plain():
+            return ag.augment_batch_plain(*maps, policy)
+        name, dtype, px_bytes = "augment", "float32+int32", 16
+    got, want = kernel(), plain()
+    mismatched = int(sum(int((g != w).sum()) for g, w in zip(got, want)))
+    rec = {"kernel": name, "case": case, "shape": [b, h, h],
+           "dtype": dtype,
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)),
            "mismatched_pixels": mismatched, "ok": mismatched == 0,
            "branches": sorted(set(policy[:, 0].tolist())),
-           **bound(b * h * h * 16 + b * 16, 0.0, "float32")}
+           # each map read once and written once (bytes a pixel: 4 + 4 in
+           # and out; S2L 4 + 4 + 16), and the policy
+           **bound(b * h * h * px_bytes + b * 16, 0.0, "float32")}
     if timed:
-        rec["ms"] = time_ms(lambda: ag.augment_batch(images, labels, policy))
-        rec["plain_ms"] = time_ms(
-            lambda: ag.augment_batch_plain(images, labels, policy))
+        rec["ms"] = time_ms(kernel)
+        rec["plain_ms"] = time_ms(plain)
         rec["library_ms"] = None
-        rec["kernel_ms"] = trace_ms(
-            lambda: ag.augment_batch(images, labels, policy))
+        rec["kernel_ms"] = trace_ms(kernel)
+        if s2l:  # the fill-off route launches no fill-flag kernel
+            rec["ok"] = rec["ok"] and set(rec["kernel_ms"]) == {
+                "augment_s2l_kernel"}
     print("kernel-check " + json.dumps(rec), flush=True)
     expect(rec["ok"] and rec["branches"] == [0, 1, 2],
-           f"augment {case} {rec['shape']}: {mismatched} pixels differ from "
-           "the plain version")
+           f"{name} {case} {rec['shape']}: {mismatched} pixels differ from "
+           f"the plain version; kernels traced {rec.get('kernel_ms')}")
     return rec
 
 
-def check_augment(seed, b, timed, dev="cuda"):
-    """The augment kernel against its plain version on a (b, 256, 256)
-    batch. The first rows of the policy are set so that every batch of 3
-    or more holds all three branches; the rest are drawn."""
+def check_augment(seed, b, timed, dev="cuda", s2l=False, case="path"):
+    """The augment kernel (s2l: its S2L variant) against its plain version
+    on a (b, 256, 256) batch. The first rows of the policy are set so that
+    every batch of 3 or more holds all three branches; the rest are
+    drawn. case "path" marks a batch a training step launches."""
     import torch
 
     from wsl4mis_torch.data.augment_device import sample_policy
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    images, labels = augment_inputs(gen, b, HW, dev)
+    maps = augment_inputs(gen, b, HW, dev, s2l)
     flips = [(0, k, a, 0) for k in range(4) for a in range(2)]
     turns = [(1, 0, 0, ang) for ang in (-20, -13, -7, -1, 0, 5, 11, 19)]
     rows = [r for trio in zip(flips, turns, [(2, 0, 0, 0)] * 8)
             for r in trio][:b]
-    policy = sample_policy(gen, labels)
+    policy = sample_policy(gen, maps[1])
     policy[: len(rows)] = torch.tensor(rows, dtype=torch.int32, device=dev)
-    return [augment_record("path", images, labels, policy, timed)]
+    return [augment_record(case, maps, policy, timed)]
 
 
-def check_augment_angles(seed, h, dev="cuda"):
+def check_augment_angles(seed, h, dev="cuda", s2l=False):
     """Every policy the sampler draws on one (49, h, h) batch: the 40
     rotation angles -20..19, the 8 rot90 / flip pairs and the identity."""
     import torch
@@ -456,10 +495,9 @@ def check_augment_angles(seed, h, dev="cuda"):
     rows = [(1, 0, 0, a) for a in range(-20, 20)]
     rows += [(0, k, a, 0) for k in range(4) for a in range(2)]
     rows.append((2, 0, 0, 0))
-    images, labels = augment_inputs(gen, len(rows), h, dev)
+    maps = augment_inputs(gen, len(rows), h, dev, s2l)
     policy = torch.tensor(rows, dtype=torch.int32, device=dev)
-    return [augment_record(f"all policies {h}x{h}", images, labels, policy,
-                           False)]
+    return [augment_record(f"all policies {h}x{h}", maps, policy, False)]
 
 
 def check_pool(name, c, h, dtype_name, n, ties, timed, backward=True,
@@ -669,7 +707,8 @@ def per_step_counts(model_name, method=None):
     ConvBlock conv a stats launch, each head a fwd launch, the encoder's
     four pools; a backward: every conv but the stem a dgrad (fwd) launch,
     every conv a wgrad launch, four pool backwards; an eval forward:
-    eval_counts. One augment launch, and one GatedCRF contraction for
+    eval_counts. One augment launch (s2l: one of its S2L variant, which
+    launches no fill-flag kernel), and one GatedCRF contraction for
     pce_gatedcrf (its backward is an elementwise scale, no launch)."""
     fwd, bwd, evl = STEP_PASSES.get(method, (1, 1, 0))
     decoders, blocks, convs = _unet_sizes(model_name)
@@ -677,14 +716,83 @@ def per_step_counts(model_name, method=None):
     return {"conv3x3_fwd_stats": blocks * fwd,
             "conv3x3_fwd": decoders * fwd + (convs - 1) * bwd
             + ev["conv3x3_fwd"] * evl,
-            "conv3x3_wgrad": convs * bwd, "augment": 1,
+            "conv3x3_wgrad": convs * bwd, "augment": int(method != "s2l"),
+            "augment_s2l": int(method == "s2l"),
             "maxpool_fwd": 4 * fwd + ev["maxpool_fwd"] * evl,
             "maxpool_bwd": 4 * bwd, "gated_crf": int(method == "pce_gatedcrf")}
 
 
+def refresh_counts(model_name, n_slices):
+    """Launches of one s2l refresh sweep over n_slices: an eval forward per
+    chunk of REFRESH_N slices (the last one zero-padded)."""
+    chunks = -(-n_slices // REFRESH_N)
+    return {k: v * chunks for k, v in eval_counts(model_name).items()}
+
+
+def check_refresh(bundle, cfg, model_name):
+    """One more refresh through the bundle's host hook, after the run: its
+    launches exactly refresh_counts; the first chunk's rows equal alpha *
+    softmax(eval logits) + (1 - alpha) * w_before to 1e-6, the logits from a
+    separate eval forward of that 32-slice chunk (the same launch shape,
+    and the conv kernels repeat bit for bit); then the wall ms of one sweep
+    (synchronized), its device ms (a torch.profiler trace of another), and
+    the wall amortised per step at the reference period_iter of 100."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+
+    state = bundle.state
+    weight = state.extra["weight"]
+    images = bundle.aux["images"]
+    n = images.shape[0]
+    with torch.no_grad():
+        logits = bundle.model(images[:REFRESH_N, ..., None], train=False)
+    want = (cfg.alpha * torch.softmax(logits.float(), dim=-1)
+            + (1 - cfg.alpha) * weight[:REFRESH_N])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle.host_hook(bundle, state, cfg.period_iter)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    expected = refresh_counts(model_name, n)
+    err = float((weight[:REFRESH_N] - want).abs().max())
+    wall2 = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.host_hook(bundle, state, cfg.period_iter)
+        torch.cuda.synchronize()
+        wall2.append(1e3 * (time.perf_counter() - t0))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bundle.host_hook(bundle, state, cfg.period_iter)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    period = TrainConfig().period_iter
+    wall = min([wall_ms] + wall2)
+    rec = {"slices": n, "chunk": REFRESH_N, "launches": counts,
+           "expected": expected, "max_abs_err": err,
+           "wall_ms": [wall_ms] + wall2,
+           "device_ms": 1e-3 * sum(us for _, us in events),
+           "port_kernels_ms": port_kernel_ms(events, 1),
+           "reference_period_iter": period,
+           "wall_ms_per_step_at_reference_period": wall / period,
+           "finite": bool(torch.isfinite(weight).all())}
+    print("s2l-refresh " + json.dumps(rec), flush=True)
+    expect(counts == expected, f"s2l refresh: launches {counts} != "
+                               f"{expected}")
+    expect(err <= 1e-6 and rec["finite"],
+           f"s2l refresh: buffer off the EMA update by {err}")
+    return rec
+
+
 def method_bundle(cfg, data, val):
     """(cfg.method's bundle on in-memory data, a maker of fresh batch
-    streams like its own). The semi-supervised methods and ustm build
+    streams like its own). The semi-supervised methods, ustm and s2l build
     theirs with make_bundle (the semi family: data = (labeled, unlabeled),
     the paired stream over the staged [labeled; unlabeled]); the others as
     their build() does."""
@@ -701,7 +809,7 @@ def method_bundle(cfg, data, val):
     if cfg.method in SEMI:
         return (mod.make_bundle(cfg, *data, val),
                 lambda: paired_data(cfg, *data)[1])
-    if cfg.method == "ustm":
+    if cfg.method in ("ustm", "s2l"):
         bundle = mod.make_bundle(cfg, data, val)
     else:
         model, state = make_model_and_state(cfg)
@@ -713,8 +821,19 @@ def method_bundle(cfg, data, val):
     return bundle, lambda: index_batches(cfg, data)
 
 
+def sup_type_of(method):
+    if method == "pce_random_walker":
+        return "random_walker"
+    return ("label" if method == "fully_supervised" or method in SEMI
+            else "scribble")
+
+
 def run_method(method, model_name, batch, steps, validate, data, val,
-               seed, time_steps=10):
+               seed, time_steps=10, **flags):
+    """Train `steps` steps through Trainer (flags: more TrainConfig fields)
+    and check launches, losses and checkpoints; then, if time_steps, time
+    and profile that many more steps. s2l: the host hook's refreshes enter
+    the expected launches, and check_refresh checks and times one more."""
     import numpy as np
     import torch
 
@@ -723,22 +842,23 @@ def run_method(method, model_name, batch, steps, validate, data, val,
 
     start = time.perf_counter()
     snap_root = os.path.join(ROOT, "build", "chip_smoke", method)
-    dense = method == "fully_supervised" or method in SEMI
     cfg = TrainConfig(
         method=method, model=model_name, batch_size=batch,
         labeled_bs=batch // 2,
         max_iterations=steps, val_every=(steps if validate else 10 ** 9),
         ckpt_every=steps, log_every=5, compute_dtype="bfloat16",
         snapshot_root=snap_root, seed=seed, device="cuda",
-        sup_type="label" if dense else "scribble",
+        sup_type=sup_type_of(method), **flags,
     )
     bundle, new_batches = method_bundle(cfg, data, val)
     state, step_fn = bundle.state, bundle.step_fn
-    losses, vals = [], []
+    losses, vals, loss_u = [], [], []
 
     def recording_step(state, batch, rngs, aux=None):
         m = step_fn(state, batch, rngs, aux)
         losses.append(m["total_loss"])
+        if "loss_u" in m:
+            loss_u.append(m["loss_u"])
         return m
 
     bundle.step_fn = recording_step
@@ -765,6 +885,9 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         chunks = -(-depth // EVAL_N)
         for k, v in eval_counts(model_name).items():
             expected[k] += v * chunks
+    if method == "s2l":  # the refreshes: eval forwards of the train stack
+        for k, v in refresh_counts(model_name, len(data)).items():
+            expected[k] += v * (steps // cfg.period_iter)
     loss_vals = [float(v) for v in losses]
     rec = {"method": method, "model": model_name, "batch": batch,
            "steps": steps, "launches": counts, "expected": expected,
@@ -793,6 +916,14 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         expect(adam["count"] == steps and all(
             float(m.abs().max()) > 0 for m in adam["mu"].values()),
             f"{method}: discriminator Adam count {adam['count']}")
+    if method == "s2l":  # the buffer moved; the gated term once it opens
+        rec["loss_u"] = [float(v) for v in loss_u]
+        rec["weight_max"] = float(state.extra["weight"].max())
+        gated = rec["loss_u"][cfg.thr_iter:]
+        expect(rec["weight_max"] > 0 and gated and all(v > 0 for v in gated),
+               f"s2l: weight buffer max {rec['weight_max']}, loss_u after "
+               f"step {cfg.thr_iter}: {gated}")
+        rec["refresh"] = check_refresh(bundle, cfg, model_name)
 
     if time_steps:
         it = new_batches()
@@ -1026,9 +1157,10 @@ def reference_check(seed):
 def summarize(recs, launches):
     """Per-kernel JSON entries: times summed over one fully_supervised
     training step's shapes (bf16, batch 24, the timed records; for
-    gated_crf one pce_gatedcrf step's launch, f32, batch 6); max_abs_err
-    over every check, in the path's dtype, of a launch on a training path
-    (batches 24, 12 and 6, and the validation forward)."""
+    gated_crf one pce_gatedcrf step's launch, f32, batch 6; for
+    augment_s2l one s2l step's launch, batch 12); max_abs_err over every
+    check, in the path's dtype, of a launch on a training path (batches
+    24, 12 and 6, the validation forward and the refresh's)."""
     rows = {
         "conv3x3_fwd": (SRC_CONV, f"{PALLAS_CONV}:329", "bfloat16"),
         "conv3x3_fwd_stats": (SRC_CONV, f"{PALLAS_CONV}:340", "bfloat16"),
@@ -1036,6 +1168,10 @@ def summarize(recs, launches):
         "augment": ("wsl4mis_torch/csrc/augment.cu",
                     "wsl4mis_tpu/ops/pallas/augment_pallas.py:137",
                     "float32+int32"),
+        # no Pallas kernel: the JAX package runs this one in XLA
+        "augment_s2l": ("wsl4mis_torch/csrc/augment.cu",
+                        "wsl4mis_tpu/data/augment_device.py:108",
+                        "float32+int32+float32x4"),
         "gated_crf": ("wsl4mis_torch/csrc/gated_crf.cu",
                       "wsl4mis_tpu/ops/pallas/gated_crf_pallas.py:37",
                       "float32"),
@@ -1081,7 +1217,7 @@ def _on_path(r):
         return r.get("role") in ("dgrad", "eval") or r["conv"] == "head"
     if r["kernel"] == "gated_crf":
         return r["role"] == "path"
-    if r["kernel"] == "augment":
+    if r["kernel"] in ("augment", "augment_s2l"):
         return r.get("case", "path") == "path"
     return True
 
@@ -1125,8 +1261,9 @@ def wrapper_calls():
     """(name, call, reps) of one call of each wrapper whose host time is
     recorded: the conv wrappers on a bf16 6x16x16x64 -> 64 conv, too small
     for the device to be the limit; the augment wrapper at the fs24 step's
-    batch and the GatedCRF contraction at the pce_gatedcrf step's, their
-    path shapes (fewer calls, so that the launch queue never fills)."""
+    batch, its S2L variant at the s2l step's and the GatedCRF contraction
+    at the pce_gatedcrf step's, their path shapes (fewer calls, so that
+    the launch queue never fills)."""
     import torch
 
     from wsl4mis_torch.data.augment_device import sample_policy
@@ -1141,6 +1278,8 @@ def wrapper_calls():
     b = torch.randn((64,), generator=gen, device="cuda").bfloat16()
     images, labels = augment_inputs(gen, N, HW)
     policy = sample_policy(gen, labels)
+    s2l_maps = augment_inputs(gen, SEMI_N, HW, s2l=True)
+    s2l_policy = sample_policy(gen, s2l_maps[1])
     probs, image = gcrf_inputs(DMPLS_N, HW, HW, 7)
     desc = gc.DEFAULT_KERNELS_DESC
     planes, weights, nf, xy = gc.split_features(image, desc, HW, HW)
@@ -1149,6 +1288,8 @@ def wrapper_calls():
         ("conv3x3_fwd_stats", lambda: cv.conv3x3_fwd_stats(x, w, b), 300),
         ("conv3x3_wgrad", lambda: cv.conv3x3_wgrad(x, x), 300),
         ("augment", lambda: ag.augment_batch(images, labels, policy), 100),
+        ("augment_s2l", lambda: ag.augment_batch_s2l(*s2l_maps, s2l_policy),
+         100),
         ("gated_crf", lambda: gc.gated_crf_products(
             probs, planes, GCRF_RADIUS, weights, nf, xy), 100),
     ]
@@ -1172,7 +1313,7 @@ def wrapper_host_us(calls):
     return out
 
 
-def check_sync_free(calls, names=("augment", "gated_crf")):
+def check_sync_free(calls, names=("augment", "augment_s2l", "gated_crf")):
     """One call of each named wrapper under torch.cuda.set_sync_debug_mode(
     "error"), in which any host-device synchronization raises."""
     import torch
@@ -1251,6 +1392,7 @@ def main(argv=None):
         synthetic_slices,
         synthetic_volumes,
     )
+    from wsl4mis_torch.data.random_walker import pseudo_label_generator_acdc
     from wsl4mis_torch.ops import _build
     from wsl4mis_torch.ops.gated_crf import DEFAULT_KERNELS_DESC
 
@@ -1294,8 +1436,9 @@ def main(argv=None):
                                repeat=dtype == "bfloat16")
             for n in (MS_N, DMPLS_N):
                 recs += check_conv(name, c, o, h, dtype, n, timed=False)
-            recs += check_conv(name, c, o, h, dtype, EVAL_N, timed=False,
-                               eval_only=True)
+            for n in (EVAL_N, REFRESH_N):
+                recs += check_conv(name, c, o, h, dtype, n, timed=False,
+                                   eval_only=True)
         for c, o, h, wd in RAGGED_CONVS:
             recs += check_conv(f"ragged {c}->{o}", c, o, h, dtype, 2,
                                timed=False, width=wd, case="ragged")
@@ -1308,8 +1451,9 @@ def main(argv=None):
                 for n in (MS_N, DMPLS_N):
                     recs += check_pool(name, c, h, dtype, n, ties,
                                        timed=False)
-                recs += check_pool(name, c, h, dtype, EVAL_N, ties,
-                                   timed=False, backward=False)
+                for n in (EVAL_N, REFRESH_N):
+                    recs += check_pool(name, c, h, dtype, n, ties,
+                                       timed=False, backward=False)
     calls = wrapper_calls()
     host_us = wrapper_host_us(calls)
     print("wrapper-host-us " + json.dumps(host_us), flush=True)
@@ -1319,6 +1463,13 @@ def main(argv=None):
     recs += check_augment(args.seed + 2, MS_N, timed=False)
     for i, h in enumerate(AUG_PLANES):
         recs += check_augment_angles(args.seed + 3 + i, h)
+    # S2L's variant: the s2l step's batch (timed), a refresh chunk's worth
+    # of samples, and every policy on each plane
+    recs += check_augment(args.seed + 6, SEMI_N, timed=True, s2l=True)
+    recs += check_augment(args.seed + 7, REFRESH_N, timed=False, s2l=True,
+                          case=f"batch {REFRESH_N}")
+    for i, h in enumerate(AUG_PLANES):
+        recs += check_augment_angles(args.seed + 8 + i, h, s2l=True)
     desc = DEFAULT_KERNELS_DESC
     recs += check_gated_crf(DMPLS_N, HW, HW, GCRF_RADIUS, desc, True,
                             args.seed, "path")
@@ -1354,6 +1505,22 @@ def main(argv=None):
                           ("pce_intensity_variance", N)):
         runs.append(run_method(method, "unet", batch, 3, False, scribbles,
                                val, args.seed, time_steps=0))
+    # pce_random_walker: fully_supervised's step on the random walker's
+    # labels of RW_SLICES scribble slices (host scipy, timed)
+    t_rw = time.perf_counter()
+    rw_labels = np.stack([pseudo_label_generator_acdc(im, sc) for im, sc in
+                          zip(scribbles.images[:RW_SLICES],
+                              scribbles.labels[:RW_SLICES])])
+    rw_s = time.perf_counter() - t_rw
+    print(f"random-walker labels: {RW_SLICES} slices in {rw_s:.2f} s",
+          flush=True)
+    expect(set(np.unique(rw_labels)) == {0, 1, 2, 3},
+           f"random walker labels hold {np.unique(rw_labels)}")
+    runs.append(run_method(
+        "pce_random_walker", "unet", N, 3, False,
+        ArraySliceDataset(scribbles.images[:RW_SLICES], rw_labels), val,
+        args.seed, time_steps=0))
+    runs[-1]["label_s"] = rw_s
     # slice 3: the semi-supervised family on a labeled tenth and the rest
     # unlabeled (dense labels on both, as its build reads them), ustm on the
     # scribbles; batch 12, labeled_bs 6
@@ -1363,6 +1530,14 @@ def main(argv=None):
                            (labeled, unlabeled), val, args.seed))
     runs.append(run_method("ustm", "unet", SEMI_N, 10, False, scribbles, val,
                            args.seed))
+    # slice 4: s2l, two refreshes inside 10 steps (period_iter 5) and the
+    # pseudo-label term open from step 5. thr_conf 0.04 lies under every
+    # pixel's largest buffer value after one refresh (alpha * max_c p_c >=
+    # 0.2 / 4), so the term is live at once; at the reference 0.8 it takes
+    # eight refreshes from a zero buffer.
+    runs.append(run_method("s2l", "unet", SEMI_N, 10, False, scribbles, val,
+                           args.seed, period_iter=5, thr_iter=5,
+                           thr_conf=0.04))
     for method in ("mean_teacher", "entropy_minimization",
                    "partially_supervised", "deep_adversarial"):
         runs.append(run_method(method, "unet", SEMI_N, 3, False,

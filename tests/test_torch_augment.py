@@ -193,7 +193,7 @@ def test_augment_wrapper_checks_before_it_launches(fake_lib):
         taug._augment_kernel(torch.zeros((65536, 1, 1)),
                              torch.zeros((65536, 1, 1), dtype=torch.int32),
                              torch.zeros((65536, 4), dtype=torch.int32))
-    assert fake_lib.calls == [] and taug.launches == {"augment": 0}
+    assert fake_lib.calls == [] and taug.launches["augment"] == 0
     big = torch.zeros((2, 100, 100))
     out_img, out_lab = taug._augment_kernel(
         big, torch.zeros((2, 100, 100), dtype=torch.int32),
@@ -201,5 +201,6 @@ def test_augment_wrapper_checks_before_it_launches(fake_lib):
     (args,) = fake_lib.calls
     assert args[6:9] == (2, 100, 100)
     assert out_img.shape == big.shape and out_lab.dtype == torch.int32
-    assert taug.launches == {"augment": 1}
+    assert taug.launches["augment"] == 1
+    assert taug.launches["augment_s2l"] == 0  # the S2L variant's count
     taug.launches["augment"] = 0

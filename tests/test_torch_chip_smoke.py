@@ -21,6 +21,7 @@ import chip_smoke  # noqa: E402
 from wsl4mis_torch.data import augment_device, synthetic_slices  # noqa: E402
 from wsl4mis_torch.engine.config import TrainConfig  # noqa: E402
 from wsl4mis_torch.engine.methods import get_method  # noqa: E402
+from wsl4mis_torch.engine.methods import s2l as ts2l  # noqa: E402
 from wsl4mis_torch.engine.methods.common import split_rngs  # noqa: E402
 from wsl4mis_torch.engine.optim import ReferenceSGD  # noqa: E402
 from wsl4mis_torch.engine.state import TrainState  # noqa: E402
@@ -75,6 +76,29 @@ def test_pool_shapes_are_the_unets(monkeypatch):
         [(c, h) for _, c, h in chip_smoke.unet_pools()]
 
 
+def _count_wrapper_calls(monkeypatch, calls):
+    """Patch every kernel wrapper to count its calls into `calls` (on the
+    card each call is one launch of its kernel)."""
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    for name in ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad"):
+        monkeypatch.setattr(tconv, name, counted(name, getattr(tconv, name)))
+    monkeypatch.setattr(augment_device._augment, "augment_batch",
+                        counted("augment", taug.augment_batch))
+    monkeypatch.setattr(ts2l, "augment_batch_s2l",
+                        counted("augment_s2l",
+                                augment_device.augment_batch_s2l))
+    for name in ("maxpool_fwd", "maxpool_bwd"):
+        fn = "max_pool_2x2_" + name[-3:]
+        monkeypatch.setattr(tpool, fn, counted(name, getattr(tpool, fn)))
+    monkeypatch.setattr(tgcrf, "gated_crf_products",
+                        counted("gated_crf", tgcrf.gated_crf_products))
+
+
 @pytest.mark.parametrize("method,model_name", [
     ("fully_supervised", "unet"), ("dmpls", "unet_cct"),
     ("pce_gatedcrf", "unet"), ("pce_tv", "unet"),
@@ -88,22 +112,7 @@ def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
     chip_smoke.method_bundle (full width at 32x32, batch 4, labeled_bs 2;
     the semi family on a paired index batch over a staged stack)."""
     calls = {k: 0 for k in chip_smoke.per_step_counts(model_name, method)}
-
-    def counted(name, fn):
-        def wrapper(*args):
-            calls[name] += 1
-            return fn(*args)
-        return wrapper
-
-    for name in ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad"):
-        monkeypatch.setattr(tconv, name, counted(name, getattr(tconv, name)))
-    monkeypatch.setattr(augment_device._augment, "augment_batch",
-                        counted("augment", taug.augment_batch))
-    for name in ("maxpool_fwd", "maxpool_bwd"):
-        fn = "max_pool_2x2_" + name[-3:]
-        monkeypatch.setattr(tpool, fn, counted(name, getattr(tpool, fn)))
-    monkeypatch.setattr(tgcrf, "gated_crf_products",
-                        counted("gated_crf", tgcrf.gated_crf_products))
+    _count_wrapper_calls(monkeypatch, calls)
     if method in chip_smoke.STEP_PASSES:
         cfg = TrainConfig(method=method, device="cpu", batch_size=4,
                           labeled_bs=2, patch_size=(32, 32),
@@ -139,6 +148,51 @@ def test_per_step_counts_match_one_step(monkeypatch, method, model_name):
     fwd, bwd, evl = chip_smoke.STEP_PASSES.get(method, (1, 1, 0))
     assert calls["maxpool_fwd"] == 4 * (fwd + evl)
     assert calls["maxpool_bwd"] == 4 * bwd
+
+
+def _s2l_bundle(n=40):
+    """s2l through chip_smoke.method_bundle: full width at 32x32, batch 4,
+    n scribble slices (40: two refresh chunks, the last one padded)."""
+    cfg = TrainConfig(method="s2l", device="cpu", batch_size=4,
+                      patch_size=(32, 32), compute_dtype="float32",
+                      thr_iter=0)
+    data = synthetic_slices(n, (32, 32), seed=4, sup_type="scribble")
+    bundle, _ = chip_smoke.method_bundle(cfg, data, None)
+    return cfg, bundle
+
+
+def test_s2l_step_counts_match_one_step(monkeypatch):
+    """One s2l step on the CPU (the pseudo-label term open): the wrapper
+    calls are chip_smoke's per-step counts for s2l, one augment_s2l call
+    and no K4 call (so no fill-flag launch)."""
+    calls = {k: 0 for k in chip_smoke.per_step_counts("unet", "s2l")}
+    _count_wrapper_calls(monkeypatch, calls)
+    _, bundle = _s2l_bundle()
+    bundle.step_fn(bundle.state, next(bundle.data_iter),
+                   split_rngs(0, 0, "cpu"), bundle.aux)
+    assert calls == chip_smoke.per_step_counts("unet", "s2l")
+    assert calls["augment_s2l"] == 1 and calls["augment"] == 0
+    assert calls == {**chip_smoke.per_step_counts("unet"), "augment": 0,
+                     "augment_s2l": 1}
+
+
+def test_s2l_refresh_counts_are_chunks_times_eval_counts(monkeypatch):
+    """One refresh through the bundle's host hook at 40 slices: two
+    eval-forward chunks of 32, so 2 x eval_counts and nothing else; the
+    hook refreshes on multiples of period_iter only."""
+    calls = {k: 0 for k in chip_smoke.per_step_counts("unet", "s2l")}
+    _count_wrapper_calls(monkeypatch, calls)
+    cfg, bundle = _s2l_bundle()
+    bundle.host_hook(bundle, bundle.state, cfg.period_iter + 1)
+    bundle.host_hook(bundle, bundle.state, 0)
+    assert not any(calls.values())
+    bundle.host_hook(bundle, bundle.state, cfg.period_iter)
+    assert chip_smoke.REFRESH_N == ts2l.REFRESH_BS == 32
+    want = chip_smoke.refresh_counts("unet", 40)
+    assert want == {k: 2 * v for k, v in
+                    chip_smoke.eval_counts("unet").items()}
+    assert {k: v for k, v in calls.items() if v} == want
+    assert float(bundle.state.extra["weight"].min()) > 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -199,6 +253,10 @@ def test_summary_lists_every_kernel_with_every_key():
         rec("conv3x3_fwd_stats", "bfloat16", 0.9, conv="head"),  # off path
         rec("conv3x3_wgrad", "bfloat16", 0.3, conv="head"),
         rec("augment", "float32+int32", 0.0, library_ms=None),
+        rec("augment_s2l", "float32+int32+float32x4", 0.0, library_ms=None,
+            case="path"),
+        rec("augment_s2l", "float32+int32+float32x4", 0.9,
+            case="batch 32"),  # off path
         rec("gated_crf", "float32", 0.4, role="path", library_ms=None,
             bound_by="operations"),
         rec("gated_crf", "float32", 0.9, role="batch 24"),  # off path
@@ -209,7 +267,7 @@ def test_summary_lists_every_kernel_with_every_key():
     launches = {k: 0 for d in chip_smoke._counters() for k in d}
     rows = chip_smoke.summarize(recs, launches)
     assert sorted(r["name"] for r in rows) == sorted(launches)
-    assert len(rows) == 7
+    assert len(rows) == 8
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for r in rows:
@@ -217,7 +275,10 @@ def test_summary_lists_every_kernel_with_every_key():
         assert os.path.isfile(os.path.join(REPO, r["source"]))
         path, line = r["replaces"].split(":")
         with open(os.path.join(REPO, path)) as f:
-            assert "_kernel(" in f.readlines()[int(line) - 1]
+            # a Pallas kernel; S2L's variant replaces an XLA function
+            want = ("def augment_batch_s2l(" if r["name"] == "augment_s2l"
+                    else "_kernel(")
+            assert want in f.readlines()[int(line) - 1]
         assert r["max_abs_err"] < 0.9 and r["ms"] == 2.0
     by_name = {r["name"]: r for r in rows}
     assert by_name["gated_crf"]["library_ms"] is None
@@ -396,6 +457,7 @@ def test_summary_leaves_out_the_ragged_shapes():
             ("conv3x3_fwd_stats", "bfloat16", {"conv": "enc0.conv1"}),
             ("conv3x3_wgrad", "bfloat16", {"conv": "head"}),
             ("augment", "float32+int32", {}),
+            ("augment_s2l", "float32+int32+float32x4", {"case": "path"}),
             ("gated_crf", "float32", {"role": "path"}),
             ("maxpool_fwd", "bfloat16", {"pool": "pool0"}),
             ("maxpool_bwd", "bfloat16", {"pool": "pool0"})):
@@ -423,6 +485,26 @@ def test_augment_checks_run_on_the_cpu():
         assert rec["ok"] and rec["mismatched_pixels"] == 0
         assert rec["shape"] == [49, h, h] and rec["branches"] == [0, 1, 2]
         assert not chip_smoke._on_path(rec)
+
+
+def test_s2l_augment_checks_run_on_the_cpu():
+    """The same checks of K4's S2L variant (image, scribble and weight
+    rows) on the CPU: exact on every policy at planes that are no tile
+    multiple, 48 bytes a pixel in the bound, off the path but for the
+    path's batch (a refresh-sized batch is tagged off it)."""
+    (path,) = chip_smoke.check_augment(0, 3, False, dev="cpu", s2l=True)
+    assert path["ok"] and path["case"] == "path"
+    assert path["kernel"] == "augment_s2l" and chip_smoke._on_path(path)
+    assert path["bound_ms"] == pytest.approx(
+        1e3 * (3 * 256 * 256 * 48 + 3 * 16) / chip_smoke.HBM_BYTES_PER_S)
+    for h in (9, 10):
+        (rec,) = chip_smoke.check_augment_angles(1, h, dev="cpu", s2l=True)
+        assert rec["ok"] and rec["mismatched_pixels"] == 0
+        assert rec["shape"] == [49, h, h] and rec["branches"] == [0, 1, 2]
+        assert not chip_smoke._on_path(rec)
+    (off,) = chip_smoke.check_augment(2, 5, False, dev="cpu", s2l=True,
+                                      case="batch 5")
+    assert off["ok"] and not chip_smoke._on_path(off)
 
 
 def test_gated_crf_check_takes_both_feature_routes_on_the_cpu():

@@ -143,8 +143,8 @@ def test_predictor_batched_equals_per_volume(acdc_tree):
         np.testing.assert_array_equal(p, pred.predict_volume(v["image"]))
 
 
-@pytest.mark.parametrize("build,name", [(get_method, "s2l"),
-                                        (get_method, "pce_random_walker"),
+@pytest.mark.parametrize("build,name", [(get_method, "scribblevc"),
+                                        (net_factory, "unet_cct_3h"),
                                         (net_factory, "unet_ds")])
 def test_unported_names_name_their_roadmap_item(build, name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):

@@ -41,6 +41,18 @@
 //   copies 16 bytes at a time without staging.
 // - Planes whose width is no multiple of 4 (or unaligned pointers) take the
 //   same code with 4-byte loads and stores.
+//
+// Scribble2Label's variant (augment_s2l_kernel, entry augment_s2l) applies
+// the same policy to a third map, the per-pixel EMA weight rows (B,H,W,4)
+// f32, one 16-byte float4 a pixel, and fills every map with 0: the scribble
+// takes no ignore-class fill (dataset_s2l.py:118-123), so no flag kernel
+// runs. Its JAX counterpart is XLA, not Pallas
+// (wsl4mis_tpu/data/augment_device.augment_batch_s2l). It reads and writes
+// 4 + 4 + 16 bytes a pixel; the weight rows of a tile's source box are
+// staged beside the image and label (48 x 53 float4, 40,704 bytes of
+// dynamic shared memory) and mapped by a pass of their own (carry_weights)
+// in which each thread takes one pixel, so that a warp stores 32 adjacent
+// float4. Both kernels share one tile body (augment_tile).
 
 #include <cuda_runtime.h>
 
@@ -134,14 +146,38 @@ __global__ void __launch_bounds__(FLAG_THREADS)
   if (threadIdx.x == 0) flags[(size_t)b * nflag + s] = found;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(NT)
-    augment_kernel(const float* __restrict__ img,
-                   const int* __restrict__ lab,
-                   const int* __restrict__ policy,
-                   const int* __restrict__ flags,
-                   float* __restrict__ img_out, int* __restrict__ lab_out,
-                   int H, int W, int nflag) {
+// S2L: the weight rows of one 32x32 output tile, one pixel a thread per
+// pass, a warp on 32 adjacent output columns of a row: its float4 stores are
+// one contiguous 512 bytes, and its staged reads walk a source row (flips,
+// rotations) or, for rot90 by 1 or 3, a source column at the odd pitch, so
+// the 8 lanes of each quarter-warp hit 8 distinct 4-bank groups. r0 < 0:
+// read the source from global memory.
+__device__ __forceinline__ void carry_weights(
+    const Map& m, const float4* __restrict__ wb, float4* __restrict__ wo,
+    const float4* s_wgt, int r0, int c0, int i0, int j0, int H, int W) {
+  for (int p = threadIdx.x; p < T * T; p += NT) {
+    const int i = i0 + p / T;
+    const int j = j0 + p % T;
+    if (i >= H || j >= W) continue;
+    int si, sj;
+    bool inside;
+    source(m, i, j, H, W, si, sj, inside);
+    const float4 z = r0 >= 0 ? s_wgt[(si - r0) * PITCH + sj - c0]
+                             : __ldg(wb + (size_t)si * W + sj);
+    wo[(size_t)i * W + j] = inside ? z : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// One 32x32 output tile of one sample. S2L: the label fill is 0 (flags is
+// not read) and the weight rows wgt -> wgt_out are carried, staged in s_wgt
+// (BOX * PITCH float4 of dynamic shared memory).
+template <bool VEC, bool S2L>
+__device__ __forceinline__ void augment_tile(
+    const float* __restrict__ img, const int* __restrict__ lab,
+    const float4* __restrict__ wgt, const int* __restrict__ policy,
+    const int* __restrict__ flags, float* __restrict__ img_out,
+    int* __restrict__ lab_out, float4* __restrict__ wgt_out, int H, int W,
+    int nflag, float4* s_wgt) {
   __shared__ float s_img[BOX * PITCH];
   __shared__ int s_lab[BOX * PITCH];
   __shared__ Map s_map;
@@ -160,6 +196,8 @@ __global__ void __launch_bounds__(NT)
   const int* lb = lab + (size_t)b * plane;
   float* io = img_out + (size_t)b * plane;
   int* lo = lab_out + (size_t)b * plane;
+  const float4* wb = S2L ? wgt + (size_t)b * plane : nullptr;
+  float4* wo = S2L ? wgt_out + (size_t)b * plane : nullptr;
 
   // warp 0: the policy row, cos / sin, the label fill, the source box
   if (tid < 32) {
@@ -170,10 +208,12 @@ __global__ void __launch_bounds__(NT)
       const float theta = __fmul_rn((float)pol.w, DEG);
       m.c = cosf(theta);
       m.s = sinf(theta);
-      bool any = false;
-      for (int q = tid; q < nflag; q += 32)
-        any |= __ldg(flags + (size_t)b * nflag + q) != 0;
-      fill = __any_sync(0xffffffffu, any) ? 4 : 0;
+      if (!S2L) {
+        bool any = false;
+        for (int q = tid; q < nflag; q += 32)
+          any |= __ldg(flags + (size_t)b * nflag + q) != 0;
+        fill = __any_sync(0xffffffffu, any) ? 4 : 0;
+      }
     }
     // lanes 0-3: the sources of the tile's corners
     int si = 0, sj = 0;
@@ -217,6 +257,7 @@ __global__ void __launch_bounds__(NT)
   const bool full = VEC && j + 3 < W;
 
   if (m.branch == 2) {  // identity: copy, no staging
+    if (S2L) carry_weights(m, wb, wo, s_wgt, -1, 0, i0, j0, H, W);
     if (i >= H) return;
     const size_t at = (size_t)i * W + j;
     if (full) {
@@ -262,8 +303,16 @@ __global__ void __launch_bounds__(NT)
         s_lab[r * PITCH + c] = __ldg(lb + at);
       }
     }
+    if (S2L) {
+      for (int q = tid; q < nr * nc; q += NT) {
+        const int r = q / nc;
+        const int c = q - r * nc;
+        s_wgt[r * PITCH + c] = __ldg(wb + (size_t)(r0 + r) * W + c0 + c);
+      }
+    }
     __syncthreads();
   }
+  if (S2L) carry_weights(m, wb, wo, s_wgt, r0, c0, i0, j0, H, W);
   if (i >= H) return;
 
   float v[4];
@@ -303,6 +352,32 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <bool VEC>
+__global__ void __launch_bounds__(NT)
+    augment_kernel(const float* __restrict__ img,
+                   const int* __restrict__ lab,
+                   const int* __restrict__ policy,
+                   const int* __restrict__ flags,
+                   float* __restrict__ img_out, int* __restrict__ lab_out,
+                   int H, int W, int nflag) {
+  augment_tile<VEC, false>(img, lab, nullptr, policy, flags, img_out,
+                           lab_out, nullptr, H, W, nflag, nullptr);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT)
+    augment_s2l_kernel(const float* __restrict__ img,
+                       const int* __restrict__ lab,
+                       const float4* __restrict__ wgt,
+                       const int* __restrict__ policy,
+                       float* __restrict__ img_out,
+                       int* __restrict__ lab_out,
+                       float4* __restrict__ wgt_out, int H, int W) {
+  extern __shared__ float4 s_wgt[];
+  augment_tile<VEC, true>(img, lab, wgt, policy, nullptr, img_out, lab_out,
+                          wgt_out, H, W, 0, s_wgt);
+}
+
+template <bool VEC>
 int launch(const void* img, const void* lab, const void* policy, void* flags,
            void* img_out, void* lab_out, int B, int H, int W,
            cudaStream_t stream) {
@@ -316,6 +391,27 @@ int launch(const void* img, const void* lab, const void* policy, void* flags,
       static_cast<const float*>(img), static_cast<const int*>(lab),
       static_cast<const int*>(policy), static_cast<const int*>(flags),
       static_cast<float*>(img_out), static_cast<int*>(lab_out), H, W, nflag);
+  return (int)cudaGetLastError();
+}
+
+constexpr int S2L_SMEM = BOX * PITCH * (int)sizeof(float4);  // 40,704 B
+
+template <bool VEC>
+int launch_s2l(const void* img, const void* lab, const void* wgt,
+               const void* policy, void* img_out, void* lab_out,
+               void* wgt_out, int B, int H, int W, cudaStream_t stream) {
+  // above 48 KB of shared memory with the static image and label boxes:
+  // opt in (per device, so on every call; it does not synchronize)
+  cudaError_t err = cudaFuncSetAttribute(
+      augment_s2l_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S2L_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, B);
+  augment_s2l_kernel<VEC><<<grid, NT, S2L_SMEM, stream>>>(
+      static_cast<const float*>(img), static_cast<const int*>(lab),
+      static_cast<const float4*>(wgt), static_cast<const int*>(policy),
+      static_cast<float*>(img_out), static_cast<int*>(lab_out),
+      static_cast<float4*>(wgt_out), H, W);
   return (int)cudaGetLastError();
 }
 
@@ -342,6 +438,24 @@ int augment(const void* img, const void* lab, const void* policy, void* flags,
                             W, s)
              : launch<false>(img, lab, policy, flags, img_out, lab_out, B, H,
                              W, s);
+}
+
+// Scribble2Label: img (B,H,W) f32, lab (B,H,W) int32 (the scribble, filled
+// with 0), wgt (B,H,W,4) f32 (16-byte aligned), policy (B,4) int32 (16-byte
+// aligned); outputs of the input shapes. Requires H == W.
+int augment_s2l(const void* img, const void* lab, const void* wgt,
+                const void* policy, void* img_out, void* lab_out,
+                void* wgt_out, int B, int H, int W, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H != W || (long long)H * W > INT_MAX ||
+      !aligned16(policy) || !aligned16(wgt) || !aligned16(wgt_out))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = W % 4 == 0 && aligned16(img) && aligned16(lab) &&
+                   aligned16(img_out) && aligned16(lab_out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_s2l<true>(img, lab, wgt, policy, img_out, lab_out,
+                                wgt_out, B, H, W, s)
+             : launch_s2l<false>(img, lab, wgt, policy, img_out, lab_out,
+                                 wgt_out, B, H, W, s);
 }
 
 const char* wsl_cuda_error_string(int err) {

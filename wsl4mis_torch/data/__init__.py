@@ -7,7 +7,7 @@ from .acdc import (
     fold_ids,
     labeled_patient_ids,
 )
-from .augment_device import augment_batch, sample_policy
+from .augment_device import augment_batch, augment_batch_s2l, sample_policy
 from .loader import batch_iterator, paired_iterator, prefetch
 from .synthetic import ArraySliceDataset, synthetic_slices, synthetic_volumes
 
@@ -16,6 +16,7 @@ __all__ = [
     "AcdcVolumeDataset",
     "ArraySliceDataset",
     "augment_batch",
+    "augment_batch_s2l",
     "batch_iterator",
     "default_acdc_root",
     "fold_ids",

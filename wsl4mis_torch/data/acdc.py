@@ -3,9 +3,11 @@
 
 * 100 patients, 5 folds; fold k holds out patients 20(k-1)+1 .. 20k.
 * The train split reads per-slice H5 files under ``ACDC_training_slices/``
-  and supervises on ``h5f[sup_type]`` (``label`` | ``scribble`` | a
-  precomputed ``random_walker``); slices are order-0 zoomed to the patch
-  size once at load time.
+  and supervises on ``h5f[sup_type]`` (``label`` | ``scribble`` |
+  ``random_walker``: precomputed, or else made from the slice's scribble
+  by ``data.random_walker``, the ACDC or prostate generator per
+  ``rw_mode``); slices are order-0 zoomed to the patch size once at load
+  time.
 * The val split reads whole volumes under ``ACDC_training_volumes/``.
 * The semi-supervised split (``labeled_type``) labels the patients whose
   number is a multiple of 10 among a fold's train patients.
@@ -90,6 +92,9 @@ class AcdcSliceDataset:
     patch_size: tuple[int, int] = (256, 256)
     limit: int | None = None
     slices_dirname: str = "ACDC_training_slices"
+    rw_mode: str = "acdc"  # the on-the-fly random-walker generator for a
+                           # slice without a random_walker key: "acdc" or
+                           # "prostate"
 
     images: np.ndarray = field(init=False, repr=False)
     labels: np.ndarray = field(init=False, repr=False)
@@ -118,12 +123,14 @@ class AcdcSliceDataset:
         imgs, labs, dense = [], [], []
         for name in names:
             with h5py.File(os.path.join(slices_dir, name), "r") as f:
-                if self.sup_type not in f:
-                    raise KeyError(
-                        f"{name} has no {self.sup_type!r} key (on-the-fly "
-                        "random-walker labels are ROADMAP.md Queue 1 item 15)")
                 img = f["image"][:].astype(np.float32)
-                lab = f[self.sup_type][:].astype(np.int32)
+                if self.sup_type == "random_walker" and \
+                        self.sup_type not in f:
+                    lab = self._random_walker(img, f["scribble"][:])
+                elif self.sup_type not in f:
+                    raise KeyError(f"{name} has no {self.sup_type!r} key")
+                else:
+                    lab = f[self.sup_type][:].astype(np.int32)
                 den = f["label"][:].astype(np.int32)
             imgs.append(_nearest_zoom2d(img, self.patch_size))
             labs.append(_nearest_zoom2d(lab, self.patch_size))
@@ -133,6 +140,18 @@ class AcdcSliceDataset:
         self.dense_labels = np.stack(dense).astype(np.int32)
         self.case_ids = [n.split("_")[0] for n in names]
         self.slice_names = names
+
+    def _random_walker(self, image, scribble):
+        """The pseudo label of one slice made from its scribble
+        (dataset_scribblevc.py:353-356 of the reference)."""
+        from .random_walker import (
+            pseudo_label_generator_acdc,
+            pseudo_label_generator_prostate,
+        )
+
+        gen = (pseudo_label_generator_prostate if self.rw_mode == "prostate"
+               else pseudo_label_generator_acdc)
+        return gen(image, scribble.astype(np.int32))
 
     def __len__(self) -> int:
         return self.images.shape[0]

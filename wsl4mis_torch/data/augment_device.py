@@ -9,6 +9,9 @@ Per sample, in distribution as ``_augment_one`` (augment_device.py:123-133):
 
 ``sample_policy`` draws the (B, 4) policy from a torch.Generator;
 ``ops.augment.augment_batch`` applies it (the CUDA kernel on the card).
+``augment_batch_s2l`` draws a policy of the same distribution (that of
+``_augment_one_multi``, augment_device.py:67-105) for Scribble2Label's
+(image, scribble, weight rows), every map filled with 0.
 """
 
 from __future__ import annotations
@@ -33,3 +36,10 @@ def augment_batch(generator, images, labels):
     """images (B,H,W) f32, labels (B,H,W) int32 -> augmented pair."""
     return _augment.augment_batch(images, labels,
                                   sample_policy(generator, labels))
+
+
+def augment_batch_s2l(generator, images, scribbles, weights):
+    """images (B,H,W) f32, scribbles (B,H,W) int32, weights (B,H,W,4) f32
+    -> the three maps augmented jointly per sample, filled with 0."""
+    return _augment.augment_batch_s2l(images, scribbles, weights,
+                                      sample_policy(generator, scribbles))

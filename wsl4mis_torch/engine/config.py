@@ -31,6 +31,12 @@ class TrainConfig:
     consistency: float = 0.1
     consistency_rampup: float = 200.0
 
+    # scribble2label flags (train_s2l.py:50-66)
+    thr_iter: int = 6000
+    thr_conf: float = 0.8
+    period_iter: int = 100
+    alpha: float = 0.2
+
     # run knobs
     method: str = "fully_supervised"
     snapshot_root: str = "model"

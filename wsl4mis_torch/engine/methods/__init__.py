@@ -2,10 +2,11 @@
 each exposes ``build(cfg) -> MethodBundle`` and ``make_step(cfg)``.
 
 Ported so far: fully_supervised, pce, dmpls, the five pCE + regularizer
-methods of ``pce_regularized``, the semi-supervised mean_teacher, uamt,
+methods of ``pce_regularized``, pce_random_walker (fully_supervised's step
+on sup_type="random_walker"), the semi-supervised mean_teacher, uamt,
 entropy_minimization and partially_supervised of ``mean_teacher``,
-deep_adversarial and ustm; the other methods of the JAX package raise
-NotImplementedError naming their ROADMAP item.
+deep_adversarial, ustm and s2l; scribblevc raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,16 +22,18 @@ _METHODS = {
     "pce_gatedcrf": "pce_regularized",
     "pce_mumford_shah": "pce_regularized",
     "pce_intensity_variance": "pce_regularized",
+    "pce_random_walker": "fully_supervised",
     "mean_teacher": "mean_teacher",
     "uamt": "mean_teacher",
     "entropy_minimization": "mean_teacher",
     "partially_supervised": "mean_teacher",
     "deep_adversarial": "deep_adversarial",
     "ustm": "ustm",
+    "s2l": "s2l",
 }
 
 # method -> ROADMAP.md Queue 1 item that ports it
-_NOT_YET = {"pce_random_walker": 15, "s2l": 12, "scribblevc": 13}
+_NOT_YET = {"scribblevc": 13}
 
 
 def get_method(name: str):

@@ -36,6 +36,9 @@ class MethodBundle:
     val_volumes: Any                # iterable of {"image", "label"} volumes
     steps_per_epoch: int
     aux: Any = None                 # the dataset staged on the device
+    host_hook: Callable | None = None  # (bundle, state, iter_num), run
+                                       # after each iteration; updates
+                                       # the state in place
 
 
 def compute_dtype(cfg: TrainConfig) -> torch.dtype:

@@ -161,6 +161,11 @@ class Trainer:
                     self.state)
                 logging.info("save model to %s", self.snapshot_path)
 
+            # after the checkpoint, as the JAX trainer runs it: a checkpoint
+            # of a hook iteration holds the state from before the hook
+            if self.bundle.host_hook is not None:
+                self.bundle.host_hook(self.bundle, self.state, iter_num)
+
         if self.writer is not None:
             self.writer.close()
         return "Training Finished!"

@@ -55,7 +55,8 @@ LIBRARIES = {
     "augment": (
         "augment.cu",
         ["-fmad=false"],
-        {"augment": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+        {"augment": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+         "augment_s2l": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     ),
     "maxpool": (
         "maxpool.cu",

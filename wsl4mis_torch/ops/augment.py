@@ -11,10 +11,16 @@ rows of (branch, k, axis, angle):
   pixels take 0 (image) or 4 / 0 (label: 4 when it holds class 4);
 * branch 2: identity.
 
+``augment_batch_s2l`` is Scribble2Label's variant (no Pallas counterpart:
+``wsl4mis_tpu/data/augment_device.augment_batch_s2l`` runs in XLA): the
+same policy on the image, the scribble and the (B, H, W, 4) f32 EMA weight
+rows, every map filled with 0 (the scribble takes no ignore-class fill).
+
 ``data.augment_device.sample_policy`` draws the policy. A CUDA tensor goes
 to the kernel (or the wrapper raises), a CPU tensor to
 ``augment_batch_plain``. ``launches`` counts wrapper calls that launch
-the kernels (one C entry point: the label-fill flags, then the tiles).
+the kernels (one C entry point each: ``augment`` the label-fill flags,
+then the tiles; ``augment_s2l`` the tiles alone).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from . import _build
 
-launches = {"augment": 0}
+launches = {"augment": 0, "augment_s2l": 0}
 
 # label words per fill-flag block (FLAG_CHUNK of csrc/augment.cu)
 _FLAG_CHUNK = 4096
@@ -45,8 +51,14 @@ def _label_fill(labels):
     return has4.to(torch.int32) * 4
 
 
-def augment_batch_plain(images, labels, policy):
-    """Plain PyTorch version: index maps and one gather per plane."""
+def augment_batch_plain(images, labels, policy, weights=None,
+                        label_fill=None):
+    """Plain PyTorch version: index maps and one gather per plane.
+
+    weights: optional (B, H, W, K) channel planes carried with the same
+    maps (filled with 0); label_fill: None for the rule (4 where the label
+    holds class 4, else 0) or a fixed fill. Returns (images, labels) or,
+    with weights, (images, labels, weights)."""
     b, h, w = images.shape
     dev = images.device
     branch = policy[:, 0].view(b, 1, 1)
@@ -81,8 +93,17 @@ def augment_batch_plain(images, labels, policy):
     lab = labels.reshape(b, -1).gather(1, src).view(b, h, w)
     img = torch.where(inside, img, torch.zeros((), dtype=img.dtype,
                                                 device=dev))
-    lab = torch.where(inside, lab, _label_fill(labels).view(b, 1, 1))
-    return img, lab
+    fill = (_label_fill(labels).view(b, 1, 1) if label_fill is None
+            else torch.tensor(label_fill, dtype=lab.dtype, device=dev))
+    lab = torch.where(inside, lab, fill)
+    if weights is None:
+        return img, lab
+    k = weights.shape[-1]
+    wgt = weights.reshape(b, -1, k).gather(
+        1, src[..., None].expand(-1, -1, k)).view(b, h, w, k)
+    wgt = torch.where(inside[..., None], wgt,
+                      torch.zeros((), dtype=wgt.dtype, device=dev))
+    return img, lab, wgt
 
 
 def _augment_kernel(images, labels, policy):
@@ -118,6 +139,56 @@ def _augment_kernel(images, labels, policy):
     _build.check("augment", "augment", err)
     launches["augment"] += 1
     return img_out, lab_out
+
+
+def _augment_s2l_kernel(images, scribbles, weights, policy):
+    """One ctypes call, no PyTorch launch and no host-device sync, no fill
+    flags: every map fills with 0."""
+    b, h, w = images.shape
+    if images.dtype != torch.float32 or weights.dtype != torch.float32 \
+            or scribbles.dtype != torch.int32 or policy.dtype != torch.int32:
+        raise TypeError("augment_s2l: images and weights float32, scribbles "
+                        "and policy int32")
+    if tuple(scribbles.shape) != (b, h, w) \
+            or tuple(weights.shape) != (b, h, w, 4) \
+            or tuple(policy.shape) != (b, 4):
+        raise ValueError(f"augment_s2l: images {tuple(images.shape)}, "
+                         f"scribbles {tuple(scribbles.shape)}, weights "
+                         f"{tuple(weights.shape)}, policy "
+                         f"{tuple(policy.shape)} disagree")
+    if h != w:
+        raise ValueError("augment_s2l: rot90 needs square planes")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"augment_s2l: batch {b} outside 1..65535")
+    if any(t.device != images.device for t in (scribbles, weights, policy)):
+        raise ValueError("augment_s2l: operands on different devices")
+    if not all(t.is_contiguous() for t in (images, scribbles, weights,
+                                           policy)):
+        raise ValueError("augment_s2l: operands must be contiguous")
+    img_out = torch.empty_like(images)
+    scr_out = torch.empty_like(scribbles)
+    wgt_out = torch.empty_like(weights)
+    lib = _build.lib("augment")
+    with _build.on_device(images):
+        err = lib.augment_s2l(
+            images.data_ptr(), scribbles.data_ptr(), weights.data_ptr(),
+            policy.data_ptr(), img_out.data_ptr(), scr_out.data_ptr(),
+            wgt_out.data_ptr(), b, h, w, _build.stream(images))
+    _build.check("augment", "augment_s2l", err)
+    launches["augment_s2l"] += 1
+    return img_out, scr_out, wgt_out
+
+
+def augment_batch_s2l(images, scribbles, weights, policy):
+    """images (B,H,W) f32, scribbles (B,H,W) int32, weights (B,H,W,4) f32,
+    policy (B,4) int32 -> the three maps augmented per sample, all filled
+    with 0."""
+    if images.is_cuda:
+        return _augment_s2l_kernel(images, scribbles, weights, policy)
+    if images.device.type == "cpu":
+        return augment_batch_plain(images, scribbles, policy,
+                                   weights=weights, label_fill=0)
+    raise RuntimeError(f"no augment_s2l implementation for {images.device}")
 
 
 def augment_batch(images, labels, policy):
