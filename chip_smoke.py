@@ -116,6 +116,11 @@ SEMI_N = 12  # the semi-supervised methods', ustm's and s2l's batch
 EVAL_N = 64  # slices per validation forward (VolumePredictor's chunk)
 REFRESH_N = 32  # slices per eval forward of s2l's refresh sweep
 RW_SLICES = 24  # synthetic slices labelled by the random walker (host scipy)
+SVC_N = 6  # scribblevc's batch (bench.py's fifth config)
+SVC_STEPS = 10
+SVC_SLICES = 11  # one step an epoch at batch 6, so the memory gate (epoch >
+                 # 4) opens at step 5 of the 10
+SVC_REF_HW = 64  # the card-versus-CPU ScribbleVC check: f32, batch 2
 FEATURES = (16, 32, 64, 128, 256)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -208,6 +213,26 @@ def port_kernel_ms(events, calls):
             if kernel in name:
                 own[kernel] = own.get(kernel, 0.0) + 1e-3 * us / calls
     return own
+
+
+LIBRARY_KERNEL = re.compile(r"gemm|cutlass|xmma|cudnn|cublas|nvjet|"
+                            r"convolve|fprop|dgrad|wgrad|splitk", re.I)
+
+
+def kernel_classes(events, steps):
+    """Device ms per step of the port's own kernels, of cuBLAS / cuDNN /
+    CUTLASS products and convolutions (by kernel name) and of the rest
+    (PyTorch's elementwise, reduction and copy kernels)."""
+    out = {"port": 0.0, "library_matmul_conv": 0.0, "other": 0.0}
+    for name, us in events:
+        if any(k in name for k in PORT_KERNELS):
+            key = "port"
+        elif LIBRARY_KERNEL.search(name):
+            key = "library_matmul_conv"
+        else:
+            key = "other"
+        out[key] += 1e-3 * us / steps
+    return out
 
 
 def trace_ms(fn, reps=10):
@@ -416,11 +441,12 @@ def augment_inputs(gen, b, h, dev="cuda", s2l=False):
     return images, labels
 
 
-def augment_record(case, maps, policy, timed):
+def augment_record(case, maps, policy, timed, paths=()):
     """The augment kernel against its plain version: every pixel equal.
     maps: (images, labels) for K4, (images, scribbles, weights) for its
     S2L variant (every map filled with 0, no fill-flag kernel: a timed
-    record's trace must show augment_s2l_kernel alone)."""
+    record's trace must show augment_s2l_kernel alone). paths: the
+    training paths that launch it at this shape."""
     from wsl4mis_torch.ops import augment as ag
 
     s2l = len(maps) == 3
@@ -448,6 +474,7 @@ def augment_record(case, maps, policy, timed):
                               for g, w in zip(got, want)),
            "mismatched_pixels": mismatched, "ok": mismatched == 0,
            "branches": sorted(set(policy[:, 0].tolist())),
+           **({"paths": list(paths)} if paths else {}),
            # each map read once and written once (bytes a pixel: 4 + 4 in
            # and out; S2L 4 + 4 + 16), and the policy
            **bound(b * h * h * px_bytes + b * 16, 0.0, "float32")}
@@ -466,7 +493,8 @@ def augment_record(case, maps, policy, timed):
     return rec
 
 
-def check_augment(seed, b, timed, dev="cuda", s2l=False, case="path"):
+def check_augment(seed, b, timed, dev="cuda", s2l=False, case="path",
+                  paths=()):
     """The augment kernel (s2l: its S2L variant) against its plain version
     on a (b, 256, 256) batch. The first rows of the policy are set so that
     every batch of 3 or more holds all three branches; the rest are
@@ -483,7 +511,7 @@ def check_augment(seed, b, timed, dev="cuda", s2l=False, case="path"):
             for r in trio][:b]
     policy = sample_policy(gen, maps[1])
     policy[: len(rows)] = torch.tensor(rows, dtype=torch.int32, device=dev)
-    return [augment_record(case, maps, policy, timed)]
+    return [augment_record(case, maps, policy, timed, paths)]
 
 
 def check_augment_angles(seed, h, dev="cuda", s2l=False):
@@ -587,7 +615,7 @@ def gcrf_inputs(b, h, w, seed, dev="cuda"):
 
 
 def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
-                    dev="cuda", stored_xy=False):
+                    dev="cuda", stored_xy=False, paths=()):
     """The GatedCRF contraction, loss and gradient against the plain loop.
     role "path" marks the shape the pce_gatedcrf step launches. The
     contraction takes the path's route (split_features: the kernel builds
@@ -629,6 +657,7 @@ def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
     rec = {"kernel": "gated_crf", "dtype": "float32",
            "shape": [b, h, w, probs.shape[-1], feats.shape[-1]],
            "radius": radius, "descriptors": len(weights), "role": role,
+           **({"paths": list(paths)} if paths else {}),
            "xy": "stored" if stored_xy else "coordinates",
            "max_abs_err": float((prod - prod_p).abs().max()),
            "prod_rel_err": rel_max(prod, prod_p),
@@ -698,7 +727,10 @@ def _unet_sizes(model_name):
 
 def eval_counts(model_name):
     """Launches of one eval-mode forward: every conv a fwd launch, the
-    encoder's four pools."""
+    encoder's four pools (ScribbleVC: none, its convolutions and pools are
+    cuDNN's and PyTorch's, as they are XLA's in the JAX package)."""
+    if model_name == "scribblevc":
+        return {}
     return {"conv3x3_fwd": _unet_sizes(model_name)[2], "maxpool_fwd": 4}
 
 
@@ -709,7 +741,13 @@ def per_step_counts(model_name, method=None):
     every conv a wgrad launch, four pool backwards; an eval forward:
     eval_counts. One augment launch (s2l: one of its S2L variant, which
     launches no fill-flag kernel), and one GatedCRF contraction for
-    pce_gatedcrf (its backward is an elementwise scale, no launch)."""
+    pce_gatedcrf (its backward is an elementwise scale, no launch).
+    ScribbleVC's step: one augment and one GatedCRF contraction, no conv
+    or pool kernel."""
+    if model_name == "scribblevc":
+        return {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
+                "augment": 1, "augment_s2l": 0, "maxpool_fwd": 0,
+                "maxpool_bwd": 0, "gated_crf": 1}
     fwd, bwd, evl = STEP_PASSES.get(method, (1, 1, 0))
     decoders, blocks, convs = _unet_sizes(model_name)
     ev = eval_counts(model_name)
@@ -792,10 +830,10 @@ def check_refresh(bundle, cfg, model_name):
 
 def method_bundle(cfg, data, val):
     """(cfg.method's bundle on in-memory data, a maker of fresh batch
-    streams like its own). The semi-supervised methods, ustm and s2l build
-    theirs with make_bundle (the semi family: data = (labeled, unlabeled),
-    the paired stream over the staged [labeled; unlabeled]); the others as
-    their build() does."""
+    streams like its own). The semi-supervised methods, ustm, s2l and
+    scribblevc build theirs with make_bundle (the semi family: data =
+    (labeled, unlabeled), the paired stream over the staged [labeled;
+    unlabeled]); the others as their build() does."""
     from wsl4mis_torch.engine.methods import get_method
     from wsl4mis_torch.engine.methods.common import (
         MethodBundle,
@@ -809,7 +847,7 @@ def method_bundle(cfg, data, val):
     if cfg.method in SEMI:
         return (mod.make_bundle(cfg, *data, val),
                 lambda: paired_data(cfg, *data)[1])
-    if cfg.method in ("ustm", "s2l"):
+    if cfg.method in ("ustm", "s2l", "scribblevc"):
         bundle = mod.make_bundle(cfg, data, val)
     else:
         model, state = make_model_and_state(cfg)
@@ -828,12 +866,20 @@ def sup_type_of(method):
             else "scribble")
 
 
+def svc_gate_step(n_slices, batch):
+    """The first step at which ScribbleVC's memory gate (epoch > 4) is open
+    on n_slices at `batch`."""
+    return 5 * max(n_slices // batch, 1)
+
+
 def run_method(method, model_name, batch, steps, validate, data, val,
                seed, time_steps=10, **flags):
     """Train `steps` steps through Trainer (flags: more TrainConfig fields)
     and check launches, losses and checkpoints; then, if time_steps, time
     and profile that many more steps. s2l: the host hook's refreshes enter
-    the expected launches, and check_refresh checks and times one more."""
+    the expected launches, and check_refresh checks and times one more.
+    scribblevc: check_svc_run checks its memory, losses, predictors and
+    inference checkpoint."""
     import numpy as np
     import torch
 
@@ -852,14 +898,32 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     )
     bundle, new_batches = method_bundle(cfg, data, val)
     state, step_fn = bundle.state, bundle.step_fn
-    losses, vals, loss_u = [], [], []
+    losses, vals = [], []
+    terms = {"loss_u": [], "loss_cls": [], "loss_crf": []}
+    svc = None
+    if method == "scribblevc":  # the step after the first open one
+        svc = {"decisions": {}, "after": svc_gate_step(len(data), batch) + 1}
 
     def recording_step(state, batch, rngs, aux=None):
         m = step_fn(state, batch, rngs, aux)
         losses.append(m["total_loss"])
-        if "loss_u" in m:
-            loss_u.append(m["loss_u"])
+        for k, v in terms.items():
+            if k in m:
+                v.append(m[k])
+        if svc is not None and state.step == svc["after"]:
+            svc["first_memory"] = {k: v.clone() for k, v in
+                                   state.extra["class_memory"].items()}
         return m
+
+    if svc is not None:  # count the validation's calls of both rules
+        for name in ("predictor", "select_predictor"):
+            pred = getattr(bundle, name)
+            svc["decisions"][name] = 0
+
+            def counted(out, fn=pred.decision_fn, name=name):
+                svc["decisions"][name] += 1
+                return fn(out)
+            pred.decision_fn = counted
 
     bundle.step_fn = recording_step
     ema = state.extra["ema_params"] if method in EMA else {}
@@ -896,9 +960,10 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     expect(counts == expected, f"{method}: launches {counts} != {expected}")
     expect(all(np.isfinite(loss_vals)), f"{method}: non-finite loss")
     expect(len(loss_vals) == steps, f"{method}: {len(loss_vals)} steps")
-    if validate:
-        expect(len(vals) == 1 and all(np.isfinite(vals[0])),
-               f"{method}: validation {vals}")
+    if validate:  # a NaN-aware mean leaves hd95 NaN when nothing is found
+        expect(len(vals) == 1 and np.isfinite(vals[0][0]) and (
+            np.isfinite(vals[0][1]) or bundle.nan_val_metrics),
+            f"{method}: validation {vals}")
     for name in (f"iter_{steps}.pth", "latest_full.ckpt"):
         expect(os.path.isfile(os.path.join(cfg.snapshot_path, name)),
                f"{method}: checkpoint {name} missing")
@@ -917,13 +982,15 @@ def run_method(method, model_name, batch, steps, validate, data, val,
             float(m.abs().max()) > 0 for m in adam["mu"].values()),
             f"{method}: discriminator Adam count {adam['count']}")
     if method == "s2l":  # the buffer moved; the gated term once it opens
-        rec["loss_u"] = [float(v) for v in loss_u]
+        rec["loss_u"] = [float(v) for v in terms["loss_u"]]
         rec["weight_max"] = float(state.extra["weight"].max())
         gated = rec["loss_u"][cfg.thr_iter:]
         expect(rec["weight_max"] > 0 and gated and all(v > 0 for v in gated),
                f"s2l: weight buffer max {rec['weight_max']}, loss_u after "
                f"step {cfg.thr_iter}: {gated}")
         rec["refresh"] = check_refresh(bundle, cfg, model_name)
+    if svc is not None:
+        rec.update(check_svc_run(bundle, cfg, steps, terms, svc))
 
     if time_steps:
         it = new_batches()
@@ -932,6 +999,52 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     rec["run_s"] = time.perf_counter() - start
     print("slice-run " + json.dumps(rec), flush=True)
     return rec
+
+
+def check_svc_run(bundle, cfg, steps, terms, svc):
+    """After a ScribbleVC run: the gate opened inside it, the memory is
+    initialized and moved after its first update, loss_cls and loss_crf
+    are finite, the validation ran both rules (the CAM rule with the
+    memory, the mean-softmax rule without), and the inference checkpoint
+    holds the memory as it stands."""
+    import numpy as np
+    import torch
+
+    memory = bundle.state.extra["class_memory"]
+    gate = svc_gate_step(len(bundle.aux["images"]), cfg.batch_size)
+    first = svc.get("first_memory")
+    moved = (max(float((memory[k] - first[k]).abs().max())
+                 for k in ("hist_conv", "hist_tran"))
+             if first is not None else 0.0)
+    ckpt = torch.load(os.path.join(cfg.snapshot_path, f"iter_{steps}.pth"),
+                      map_location="cpu", weights_only=True)
+    saved = ckpt.get("class_memory", {})
+    rec = {"gate_step": gate,
+           "memory": {"initialized": float(memory["initialized"]),
+                      "hist_conv_absmax": float(memory["hist_conv"].abs()
+                                                .max()),
+                      "hist_tran_absmax": float(memory["hist_tran"].abs()
+                                                .max()),
+                      "moved_after_first_update": moved},
+           "loss_cls": [float(v) for v in terms["loss_cls"]],
+           "loss_crf": [float(v) for v in terms["loss_crf"]],
+           "decision_calls": svc["decisions"],
+           "checkpoint_keys": sorted(ckpt),
+           "checkpoint_memory_equal": bool(saved) and all(
+               torch.equal(saved[k], memory[k].cpu()) for k in memory)}
+    expect(0 < gate < steps, f"scribblevc: gate at step {gate} of {steps}")
+    expect(rec["memory"]["initialized"] == 1.0 and moved > 0
+           and rec["memory"]["hist_conv_absmax"] > 0,
+           f"scribblevc: memory {rec['memory']}")
+    expect(len(rec["loss_cls"]) == len(rec["loss_crf"]) == steps
+           and all(np.isfinite(rec["loss_cls"] + rec["loss_crf"])),
+           f"scribblevc: loss_cls {rec['loss_cls']}, loss_crf "
+           f"{rec['loss_crf']}")
+    expect(all(v > 0 for v in svc["decisions"].values()),
+           f"scribblevc: validation decisions {svc['decisions']}")
+    expect(rec["checkpoint_memory_equal"],
+           f"scribblevc: iter_{steps}.pth holds {rec['checkpoint_keys']}")
+    return {"svc": rec}
 
 
 def time_step(step_fn, state, aux, cfg, batches, seed):
@@ -986,6 +1099,7 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"ms_per_step": 1e-3 * wall_us / steps,
             "port_kernels_ms_per_step": port_kernel_ms(events, steps),
+            "ms_per_step_by_class": kernel_classes(events, steps),
             "device_busy_ms_per_step": 1e-3 * busy_us / steps,
             "device_busy_share": busy_us / wall_us,
             "top_kernels_ms_per_step": [[name[:80], 1e-3 * us / steps]
@@ -1148,6 +1262,147 @@ def reference_check(seed):
     expect(rec["wrong_variant_err"] > GRAD_TOL,
            f"reference: bf16 kernels pass the f32 check "
            f"({rec['wrong_variant_err']} <= {GRAD_TOL})")
+    return rec
+
+
+def svc_case(seed, hw, **model_kwargs):
+    """(model, x, scribbles, category): a ScribbleVC in f32 (full width
+    unless model_kwargs narrow it), batch 2, drop-path 0 (train mode makes
+    no draw), memory off, and two phantom slices at hw x hw with their
+    scribbles and class-presence table. The BN running statistics are
+    those of x (a no-grad train forward at momentum 0): at their initial
+    (0, 1) the eval forward normalises nothing and its activations grow
+    through the 12 stages."""
+    import torch
+
+    from wsl4mis_torch.data import synthetic_slices
+    from wsl4mis_torch.engine.methods.scribblevc import slice_categories
+    from wsl4mis_torch.models import FusedBatchNorm, net_factory
+
+    model = net_factory("scribblevc", 4, dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(seed),
+                        batch_size=2, drop_path_rate=0.0, **model_kwargs)
+    data = synthetic_slices(2, (hw, hw), seed=seed, sup_type="scribble")
+    x = torch.from_numpy(data.images[..., None])
+    lab = torch.from_numpy(data.labels)
+    cat = torch.from_numpy(slice_categories(data.dense_labels, 4))
+    norms = [m for m in model.modules() if isinstance(m, FusedBatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model(x, train=True)
+    for m in norms:
+        m.momentum = 0.9
+    return model, x, lab, cat
+
+
+def svc_loss_and_grads(model, x, lab, cat):
+    """Train-mode pCE of both decoders plus the BCE of both heads (the
+    step's terms that need no kernel), and every parameter's gradient."""
+    import torch.nn.functional as F
+
+    from wsl4mis_torch.ops import losses
+
+    model.zero_grad()
+    seg_conv, seg_trans, (conv_cls, tran_cls) = model(x, train=True)
+    loss = 0.5 * (losses.cross_entropy(seg_conv, lab, ignore_index=4)
+                  + losses.cross_entropy(seg_trans, lab, ignore_index=4)) \
+        + 0.05 * (F.binary_cross_entropy_with_logits(conv_cls, cat)
+                  + F.binary_cross_entropy_with_logits(tran_cls, cat))
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().float().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def grad_norm_err(got, want):
+    """The norm of the gradient difference over all parameters, over the
+    norm of `want`: one number for the whole gradient vector, which the
+    tensors whose true gradient is 0 (a bias in front of a train-mode BN,
+    pure rounding noise) do not dominate."""
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
+    den = sum(float((want[k] ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+# between the card's error and the exact-GELU variant's on an H100 (card
+# 5.8e-5 / 6.0e-3, wrong 1.7e-3 / 0.20, the CPU's own gradient spread up to
+# 3.6e-2: PERF.md, the ScribbleVC findings)
+SVC_EVAL_TOL = 3e-4
+SVC_LOSS_TOL = 1e-4
+SVC_GRAD_TOL = 0.1
+
+
+def svc_reference_check(seed, dev="cuda", hw=SVC_REF_HW, draws=2,
+                        **model_kwargs):
+    """ScribbleVC in f32 (TF32 off) on `dev` against the same model on the
+    CPU: the four eval outputs (both decoders' logits, both heads), the
+    train-mode loss and the whole gradient, beside the CPU's own spread
+    (the batch reversed, and `draws` input scalings by 1 + 1e-6 noise, which
+    change only f32 rounding) and a known-wrong variant (exact GELU in
+    place of flax's tanh form) on `dev`. Tolerances: eval outputs
+    SVC_EVAL_TOL of their largest magnitude, loss SVC_LOSS_TOL relative,
+    gradient SVC_GRAD_TOL in norm (grad_norm_err), which the CPU's spread
+    must lie under (train-mode BN over the 4x4 deep maps at batch 2
+    amplifies rounding) and the wrong variant above, in both checks."""
+    import copy
+
+    import torch
+
+    import wsl4mis_torch.models.scribblevc as svc_model
+
+    cpu, x, lab, cat = svc_case(seed, hw, **model_kwargs)
+    card = copy.deepcopy(cpu).to(dev)
+    xd, ld, cd = x.to(dev), lab.to(dev), cat.to(dev)
+    with torch.no_grad():
+        want = cpu(x, train=False)
+        got = card(xd, train=False)
+    flat = (lambda o: [o[0], o[1], o[2][0], o[2][1]])
+    eval_errs = [rel_max(g.cpu(), w) for g, w in zip(flat(got), flat(want))]
+    loss_c, grad_c = svc_loss_and_grads(cpu, x, lab, cat)
+    loss_g, grad_g = svc_loss_and_grads(card, xd, ld, cd)
+    _, grad_rev = svc_loss_and_grads(cpu, x.flip(0), lab.flip(0),
+                                     cat.flip(0))
+    gen = torch.Generator().manual_seed(seed)
+    perturb = 0.0
+    for _ in range(draws):
+        noise = torch.randn(x.shape, generator=gen)
+        _, g_p = svc_loss_and_grads(cpu, x * (1 + 1e-6 * noise), lab, cat)
+        perturb = max(perturb, grad_norm_err(g_p, grad_c))
+    gelu = svc_model._gelu
+    svc_model._gelu = torch.nn.functional.gelu
+    try:
+        with torch.no_grad():
+            wrong = card(xd, train=False)
+        _, grad_w = svc_loss_and_grads(card, xd, ld, cd)
+    finally:
+        svc_model._gelu = gelu
+    rec = {"input": [2, hw, hw, 1], "seed": seed, "device": str(dev),
+           "eval_rel_err": eval_errs,
+           "loss": loss_c, "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+           "grad_norm_err": grad_norm_err(grad_g, grad_c),
+           "cpu_reorder_err": grad_norm_err(grad_rev, grad_c),
+           "cpu_perturb_err": perturb,
+           "wrong_variant_eval_err": max(
+               rel_max(g.cpu(), w) for g, w in zip(flat(wrong), flat(want))),
+           "wrong_variant_grad_err": grad_norm_err(grad_w, grad_c),
+           "finite": all(bool(torch.isfinite(o).all()) for o in flat(got)),
+           "shapes": [list(o.shape) for o in flat(got)]}
+    print("svc-reference " + json.dumps(rec), flush=True)
+    expect(rec["finite"] and rec["shapes"] == [[2, hw, hw, 4]] * 2
+           + [[2, 3]] * 2, f"svc reference: outputs {rec['shapes']}")
+    expect(max(eval_errs) <= SVC_EVAL_TOL,
+           f"svc reference: eval rel err {eval_errs}")
+    expect(rec["loss_rel_err"] <= SVC_LOSS_TOL,
+           f"svc reference: loss rel err {rec['loss_rel_err']}")
+    expect(max(rec["cpu_reorder_err"], perturb) <= SVC_GRAD_TOL,
+           f"svc reference: the CPU's own spread exceeds {SVC_GRAD_TOL}")
+    expect(rec["grad_norm_err"] <= SVC_GRAD_TOL,
+           f"svc reference: grad err {rec['grad_norm_err']}")
+    expect(rec["wrong_variant_eval_err"] > SVC_EVAL_TOL
+           and rec["wrong_variant_grad_err"] > SVC_GRAD_TOL,
+           f"svc reference: exact GELU passes the check (eval "
+           f"{rec['wrong_variant_eval_err']}, gradient "
+           f"{rec['wrong_variant_grad_err']})")
     return rec
 
 
@@ -1459,7 +1714,8 @@ def main(argv=None):
     print("wrapper-host-us " + json.dumps(host_us), flush=True)
     sync_free = check_sync_free(calls)
     recs += check_augment(args.seed, N, timed=True)
-    recs += check_augment(args.seed + 1, DMPLS_N, timed=False)
+    recs += check_augment(args.seed + 1, DMPLS_N, timed=False,
+                          paths=("dmpls", "pce_gatedcrf", "scribblevc"))
     recs += check_augment(args.seed + 2, MS_N, timed=False)
     for i, h in enumerate(AUG_PLANES):
         recs += check_augment_angles(args.seed + 3 + i, h)
@@ -1472,7 +1728,8 @@ def main(argv=None):
         recs += check_augment_angles(args.seed + 8 + i, h, s2l=True)
     desc = DEFAULT_KERNELS_DESC
     recs += check_gated_crf(DMPLS_N, HW, HW, GCRF_RADIUS, desc, True,
-                            args.seed, "path")
+                            args.seed, "path",
+                            paths=("pce_gatedcrf", "scribblevc"))
     recs += check_gated_crf(N, HW, HW, GCRF_RADIUS, desc, True,
                             args.seed + 1, "batch 24")
     # ragged tile edges (40 x 72 against 32 x 32 tiles): the default list
@@ -1538,6 +1795,11 @@ def main(argv=None):
     runs.append(run_method("s2l", "unet", SEMI_N, 10, False, scribbles, val,
                            args.seed, period_iter=5, thr_iter=5,
                            thr_conf=0.04))
+    # slice 5: ScribbleVC at full width, the memory gate opening at step 5
+    svc_data = synthetic_slices(SVC_SLICES, (HW, HW), seed=args.seed + 2,
+                                sup_type="scribble")
+    runs.append(run_method("scribblevc", "scribblevc", SVC_N, SVC_STEPS,
+                           True, svc_data, val, args.seed))
     for method in ("mean_teacher", "entropy_minimization",
                    "partially_supervised", "deep_adversarial"):
         runs.append(run_method(method, "unet", SEMI_N, 3, False,
@@ -1548,6 +1810,7 @@ def main(argv=None):
            f"fully_supervised loss did not fall: {fs}")
     phase_s["training"] = time.perf_counter() - t0 - sum(phase_s.values())
     ref = reference_check(args.seed)
+    svc_ref = svc_reference_check(args.seed)
     phase_s["reference"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
@@ -1565,7 +1828,8 @@ def main(argv=None):
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs,
-              "reference": ref, "kernels": kernels}
+              "reference": ref, "svc_reference": svc_ref,
+              "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)
     with open(args.detail, "w") as f:
         json.dump(detail, f, indent=1)

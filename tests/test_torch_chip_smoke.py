@@ -1,12 +1,15 @@
 """chip_smoke.py off the card (on the CPU): it refuses to run without CUDA,
 the conv and pool shapes and per-step launch counts it holds the card's run
-to are those of the port's UNet and UNet_CCT training steps (the
-semi-supervised ones through the bundles it builds), its pool and
-GatedCRF checks run (plain against plain) at tiny sizes, its kernel summary
-lists every kernel with every key, and its reference check's known-wrong
-variant runs every conv kernel in bf16."""
+to are those of the port's UNet, UNet_CCT and ScribbleVC training steps
+(the semi-supervised ones and ScribbleVC through the bundles it builds),
+ScribbleVC's synthetic set opens the memory gate inside its run, its pool
+and GatedCRF checks run (plain against plain) at tiny sizes, its kernel
+summary lists every kernel with every key, its reference check's
+known-wrong variant runs every conv kernel in bf16, and its ScribbleVC
+card-versus-CPU check runs (CPU against CPU) at a narrow width."""
 
 import copy
+import functools
 import os
 import shutil
 import subprocess
@@ -22,6 +25,7 @@ from wsl4mis_torch.data import augment_device, synthetic_slices  # noqa: E402
 from wsl4mis_torch.engine.config import TrainConfig  # noqa: E402
 from wsl4mis_torch.engine.methods import get_method  # noqa: E402
 from wsl4mis_torch.engine.methods import s2l as ts2l  # noqa: E402
+from wsl4mis_torch.engine.methods import scribblevc as tsvc  # noqa: E402
 from wsl4mis_torch.engine.methods.common import split_rngs  # noqa: E402
 from wsl4mis_torch.engine.optim import ReferenceSGD  # noqa: E402
 from wsl4mis_torch.engine.state import TrainState  # noqa: E402
@@ -33,6 +37,17 @@ from wsl4mis_torch.ops import gated_crf as tgcrf  # noqa: E402
 from wsl4mis_torch.ops import maxpool as tpool  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs six
+    workers on a few cores, where torch's oversubscribed thread pools made
+    its CPU steps tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -193,6 +208,79 @@ def test_s2l_refresh_counts_are_chunks_times_eval_counts(monkeypatch):
                     chip_smoke.eval_counts("unet").items()}
     assert {k: v for k, v in calls.items() if v} == want
     assert float(bundle.state.extra["weight"].min()) > 0
+
+
+SVC_NARROW = dict(base_channel=8, embed_dim=32, num_heads=2)
+
+
+def _svc_bundle(monkeypatch, n=chip_smoke.SVC_SLICES):
+    """scribblevc through chip_smoke.method_bundle at 32x32, batch 6, n
+    scribble phantoms, narrow widths (depth 12)."""
+    monkeypatch.setattr(tsvc, "net_factory",
+                        functools.partial(net_factory, **SVC_NARROW))
+    cfg = TrainConfig(method="scribblevc", model="scribblevc", device="cpu",
+                      batch_size=chip_smoke.SVC_N, patch_size=(32, 32),
+                      compute_dtype="float32", sup_type="scribble")
+    data = synthetic_slices(n, (32, 32), seed=5, sup_type="scribble")
+    bundle, _ = chip_smoke.method_bundle(cfg, data, None)
+    return cfg, bundle
+
+
+def test_scribblevc_step_counts_match_one_step(monkeypatch):
+    """Two scribblevc steps on the CPU, the memory gate closed and then
+    open: each reaches the augment and GatedCRF wrappers once and no conv
+    or pool wrapper (the Conformer's convs and pools are cuDNN's and
+    PyTorch's, as they are XLA's in the JAX package), chip_smoke's
+    per-step counts; an eval forward reaches none."""
+    per = chip_smoke.per_step_counts("scribblevc", "scribblevc")
+    assert per == {**{k: 0 for k in per}, "augment": 1, "gated_crf": 1}
+    calls = {k: 0 for k in per}
+    _count_wrapper_calls(monkeypatch, calls)
+    _, bundle = _svc_bundle(monkeypatch)
+    gate = chip_smoke.svc_gate_step(chip_smoke.SVC_SLICES, chip_smoke.SVC_N)
+    memory = bundle.state.extra["class_memory"]
+    for step in (gate - 1, gate):
+        bundle.state.step = step
+        before = dict(calls)
+        bundle.step_fn(bundle.state, next(bundle.data_iter),
+                       split_rngs(0, step, "cpu"), bundle.aux)
+        assert {k: calls[k] - before[k] for k in calls} == per
+        assert float(memory["initialized"]) == (step == gate)
+    before = dict(calls)
+    with torch.no_grad():
+        bundle.model(torch.zeros((2, 32, 32, 1)), train=False, memory=memory,
+                     use_class_rep=True)
+    assert calls == before and chip_smoke.eval_counts("scribblevc") == {}
+
+
+def test_scribblevc_gate_opens_inside_the_run(monkeypatch):
+    """SVC_SLICES phantoms at batch SVC_N make one step an epoch, so the
+    gate (epoch > 4) opens at step 5, inside the SVC_STEPS-step run, with
+    steps on both sides of it; the bundle's steps_per_epoch agrees."""
+    gate = chip_smoke.svc_gate_step(chip_smoke.SVC_SLICES, chip_smoke.SVC_N)
+    assert gate == 5 and 0 < gate < chip_smoke.SVC_STEPS
+    _, bundle = _svc_bundle(monkeypatch)
+    assert 5 * bundle.steps_per_epoch == gate
+    assert chip_smoke.svc_gate_step(2 * chip_smoke.SVC_N,
+                                    chip_smoke.SVC_N) == 10
+
+
+def test_svc_reference_check_runs_on_the_cpu():
+    """The card-versus-CPU ScribbleVC check with the CPU in both roles at
+    32x32 and a quarter of the widths (base 16, embed 64): no error, a
+    spread under the tolerance, and the exact-GELU variant caught by both
+    checks (at base 8 its gradient error, 0.08, stays under the full
+    width's tolerance)."""
+    rec = chip_smoke.svc_reference_check(0, dev="cpu", hw=32, draws=1,
+                                         base_channel=16, embed_dim=64,
+                                         num_heads=2)
+    assert rec["eval_rel_err"] == [0.0] * 4 and rec["grad_norm_err"] == 0.0
+    assert rec["loss_rel_err"] == 0.0
+    assert 0 < max(rec["cpu_reorder_err"], rec["cpu_perturb_err"]) \
+        <= chip_smoke.SVC_GRAD_TOL
+    assert rec["wrong_variant_eval_err"] > chip_smoke.SVC_EVAL_TOL
+    assert rec["wrong_variant_grad_err"] > chip_smoke.SVC_GRAD_TOL
+    assert rec["shapes"] == [[2, 32, 32, 4]] * 2 + [[2, 3]] * 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -554,3 +642,20 @@ def test_port_kernel_ms_sums_each_kernel_per_call():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         torch.ones(3).add_(1)
     assert chip_smoke.device_events(prof) == []
+
+
+def test_kernel_classes_split_port_library_and_the_rest():
+    """kernel_classes puts the port's kernels (their names hold "conv"
+    too) first, cuBLAS / cuDNN / CUTLASS kernels by name second, and every
+    other device event in the rest, per step."""
+    events = [("void (anonymous namespace)::conv3x3_wgrad_mma_kernel<64>"
+               "(...)", 100.0),
+              ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128",
+               200.0),
+              ("nvjet_hsh_64x64_64x16_2x1_v_bz_coopA_NNN", 50.0),
+              ("void cudnn::engines_precompiled::nchwToNhwcKernel", 10.0),
+              ("void at::native::reduce_kernel<128, 4>", 300.0)]
+    assert chip_smoke.kernel_classes(events, 2) == {
+        "port": pytest.approx(0.05),
+        "library_matmul_conv": pytest.approx(0.13),
+        "other": pytest.approx(0.15)}

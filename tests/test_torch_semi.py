@@ -75,6 +75,17 @@ RNG_NAMES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs six
+    workers on a few cores, where torch's oversubscribed thread pools made
+    its CPU steps tens of times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class KeyedDraws:
     """Stands in for a JAX random draw inside jit: the value registered for
     the key it is given (NaN for an unknown key, so a miss shows)."""
@@ -245,8 +256,10 @@ def test_ema_update_matches(step):
         np.float32)) for k, p in model.named_parameters()}
     student_np = {k: p.detach().numpy().copy()
                   for k, p in model.named_parameters()}
-    want = jax_ema({k: jnp.asarray(v.numpy()) for k, v in teacher.items()},
-                   {k: jnp.asarray(v) for k, v in student_np.items()},
+    # copies: a jnp.asarray view of the tensors' memory could be read by
+    # the asynchronous JAX update after ema_update below has changed them
+    want = jax_ema({k: jnp.array(v.numpy()) for k, v in teacher.items()},
+                   {k: jnp.array(v) for k, v in student_np.items()},
                    0.99, jnp.int32(step))
     ema_update(teacher, model, 0.99, step)
     for k, v in want.items():

@@ -143,7 +143,7 @@ def test_predictor_batched_equals_per_volume(acdc_tree):
         np.testing.assert_array_equal(p, pred.predict_volume(v["image"]))
 
 
-@pytest.mark.parametrize("build,name", [(get_method, "scribblevc"),
+@pytest.mark.parametrize("build,name", [(net_factory, "pnet"),
                                         (net_factory, "unet_cct_3h"),
                                         (net_factory, "unet_ds")])
 def test_unported_names_name_their_roadmap_item(build, name):

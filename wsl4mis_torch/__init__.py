@@ -7,9 +7,8 @@ take an explicit device and default to ``"cuda"``; the 3x3 convolutions,
 the batch augmentation, the 2x2 max pool and the Gated CRF contraction
 run in hand-written kernels (``csrc/``) that build with nvcc at first use.
 
-Ported so far: the 2D U-Net training paths of fully_supervised, pce, dmpls,
-the five pCE + regularizer methods, the semi-supervised mean_teacher, uamt,
-entropy_minimization, partially_supervised and deep_adversarial, and ustm,
+Ported: all 17 training methods of the JAX package (the U-Net family's,
+the semi-supervised ones, ustm, s2l, pce_random_walker and ScribbleVC),
 through ``engine.methods.get_method(name).build(cfg)`` and
 ``engine.trainer.Trainer(cfg, bundle).train()``.
 """

@@ -1,7 +1,13 @@
 """ACDC fold logic and RAM-cached H5 readers (port of
-``wsl4mis_tpu/data/acdc.py``, ACDC folds only).
+``wsl4mis_tpu/data/acdc.py``).
 
 * 100 patients, 5 folds; fold k holds out patients 20(k-1)+1 .. 20k.
+  ScribbleVC's splits: ``MAAGfold`` (35 train patients), ``MAAGfold70``,
+  ``MAAGfoldN`` (N of the 70, drawn with seed 0) against a fixed 15, the
+  MSCMR split ``MSCMRfold`` (2-digit case names), and the prostate splits
+  ``prostate_fold1..4`` / ``prostate_a`` (80 patients); their slices and
+  volumes live under the datasets' ``slices_dirname`` /
+  ``volumes_dirname`` (``MSCMR_training_slices``, ...).
 * The train split reads per-slice H5 files under ``ACDC_training_slices/``
   and supervises on ``h5f[sup_type]`` (``label`` | ``scribble`` |
   ``random_walker``: precomputed, or else made from the slice's scribble
@@ -40,16 +46,90 @@ def default_acdc_root() -> str:
     return "../data/ACDC"
 
 
-def fold_ids(fold: str) -> tuple[list[str], list[str]]:
-    """(train_patients, test_patients) for fold1..fold5."""
+def _acdc_fold_ids(fold: str) -> tuple[list[str], list[str]]:
     m = _FOLD_RE.match(fold)
     if not m:
-        raise KeyError(f"unknown fold {fold!r}; expected fold1..fold5 (the "
-                       "MAAG, MSCMR and prostate splits come with ScribbleVC, "
-                       "ROADMAP.md Queue 1 item 13)")
+        raise KeyError(f"unknown fold {fold!r}; expected fold1..fold5, "
+                       "MAAGfold[N], MSCMRfold or prostate_*")
     k = int(m.group(1))
     testing = set(ALL_CASES[20 * (k - 1): 20 * k])
     return [c for c in ALL_CASES if c not in testing], sorted(testing)
+
+
+_MAAG_TRAIN35 = [37, 50, 53, 100, 38, 19, 61, 74, 97, 31, 91, 35, 56, 94,
+                 26, 69, 46, 59, 4, 89, 71, 6, 52, 43, 45, 63, 93, 14, 98,
+                 88, 21, 28, 99, 54, 90]
+_MAAG_TRAIN70 = _MAAG_TRAIN35 + [2, 76, 34, 85, 70, 86, 3, 8, 51, 40, 7, 13,
+                                 47, 55, 12, 58, 87, 9, 65, 62, 33, 42, 23,
+                                 92, 29, 11, 83, 68, 75, 67, 16, 48, 66, 20,
+                                 15]
+_MAAG_VAL = [84, 32, 27, 96, 17, 18, 57, 81, 79, 22, 1, 44, 49, 25, 95]
+
+
+def maag_fold_ids(fold: str, seed: int = 0) -> tuple[list[str], list[str]]:
+    """ScribbleVC's MAAG splits (dataset_scribblevc.py:314-336): MAAGfold
+    35 train patients, MAAGfold70 70, MAAGfoldN a random N of the 70; the
+    same 15 validation patients."""
+    fmt = "patient{:0>3}".format
+    val = [fmt(i) for i in _MAAG_VAL]
+    if fold == "MAAGfold":
+        return [fmt(i) for i in _MAAG_TRAIN35], val
+    if fold == "MAAGfold70":
+        return [fmt(i) for i in _MAAG_TRAIN70], val
+    if fold.startswith("MAAGfold"):
+        n = int(fold[8:])
+        chosen = np.random.RandomState(seed).choice(_MAAG_TRAIN70, size=n,
+                                                     replace=False)
+        return [fmt(i) for i in chosen], val
+    raise KeyError(f"unknown MAAG fold {fold!r}")
+
+
+_MSCMR_TRAIN = [13, 14, 15, 18, 19, 20, 21, 22, 24, 25, 26, 27, 2, 31, 32,
+                34, 37, 39, 42, 44, 45, 4, 6, 7, 9]
+_MSCMR_VAL = [1, 29, 36, 41, 8]
+
+
+def mscmr_fold_ids() -> tuple[list[str], list[str]]:
+    """The MSCMR split (dataset_scribblevc.py:406-410; 2-digit ids)."""
+    fmt = "patient{:0>2}".format
+    return [fmt(i) for i in _MSCMR_TRAIN], [fmt(i) for i in _MSCMR_VAL]
+
+
+_PROSTATE_A_TEST = [61, 58, 22, 56, 44, 24, 40, 59, 53, 64, 65, 35, 30, 78,
+                    72, 80, 26, 68, 52, 74]
+
+
+def prostate_fold_ids(fold: str) -> tuple[list[str], list[str]]:
+    """The prostate splits (dataset_scribblevc.py:78-116): 80 patients;
+    prostate_fold1..4 hold out 20-patient blocks, prostate_a tests a fixed
+    20. The reference's 'a' train list leaves out fold4's block, not the
+    'a' test ids (dataset_scribblevc.py:100-103), and so does this one."""
+    fmt = "patient{:0>3}".format
+    all_cases = [fmt(i) for i in range(1, 81)]
+    sub = fold[len("prostate_"):]
+    if sub == "a":
+        f4 = {fmt(i) for i in range(61, 81)}
+        return ([c for c in all_cases if c not in f4],
+                [fmt(i) for i in _PROSTATE_A_TEST])
+    m = re.match(r"^fold([1-4])$", sub)
+    if not m:
+        raise KeyError(f"unknown prostate fold {fold!r}; expected "
+                       "prostate_fold1..4 or prostate_a")
+    k = int(m.group(1))
+    testing = set(all_cases[20 * (k - 1): 20 * k])
+    return [c for c in all_cases if c not in testing], sorted(testing)
+
+
+def fold_ids(fold: str) -> tuple[list[str], list[str]]:
+    """(train_patients, test_patients) of fold1..fold5, MAAGfold*,
+    MSCMRfold or prostate_* (the JAX package's resolve_fold_ids)."""
+    if fold.startswith("MAAGfold"):
+        return maag_fold_ids(fold)
+    if fold == "MSCMRfold":
+        return mscmr_fold_ids()
+    if fold.startswith("prostate_"):
+        return prostate_fold_ids(fold)
+    return _acdc_fold_ids(fold)
 
 
 def labeled_patient_ids(fold: str) -> tuple[list[str], list[str]]:

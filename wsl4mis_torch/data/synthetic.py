@@ -18,10 +18,13 @@ _INTENSITY = np.array([0.1, 0.5, 0.7, 0.9], np.float32)
 
 @dataclass
 class ArraySliceDataset:
-    """In-memory slices: images (N,H,W) float32, labels (N,H,W) int32."""
+    """In-memory slices: images (N,H,W) float32, labels (N,H,W) int32 (the
+    supervision), dense_labels (N,H,W) int32 where known (ScribbleVC's
+    class-presence table reads them)."""
 
     images: np.ndarray
     labels: np.ndarray
+    dense_labels: np.ndarray | None = None
 
     def __len__(self) -> int:
         return self.images.shape[0]
@@ -60,12 +63,14 @@ def synthetic_slices(n: int, patch_size=(256, 256), seed: int = 0,
                      chunk: int = 64) -> ArraySliceDataset:
     rng = np.random.RandomState(seed)
     h, w = patch_size
-    images, labels = [], []
+    images, labels, dense = [], [], []
     for start in range(0, n, chunk):
         im, lab = _phantoms(rng, min(chunk, n - start), h, w)
         images.append(im)
         labels.append(_scribble(lab) if sup_type == "scribble" else lab)
-    return ArraySliceDataset(np.concatenate(images), np.concatenate(labels))
+        dense.append(lab)
+    return ArraySliceDataset(np.concatenate(images), np.concatenate(labels),
+                             np.concatenate(dense))
 
 
 def synthetic_volumes(n: int, depth: int, h: int, w: int,

@@ -46,6 +46,10 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"     # bfloat16 | float32
     resume: bool = False
     data_limit: int | None = None       # cap the dataset size (smoke runs)
+    light_val: bool = False             # skip the train-rule validation
+                                        # pass when the method has a
+                                        # select_predictor (selection
+                                        # never reads it)
     aug_mode: str = "device"            # "device": augment inside the step;
                                         # "host": batches arrive augmented
     device: str = "cuda"                # "cuda" or "cpu"; cuda never falls

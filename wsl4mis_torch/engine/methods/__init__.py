@@ -1,12 +1,13 @@
 """Training methods of the port. ``get_method(name)`` returns the module;
-each exposes ``build(cfg) -> MethodBundle`` and ``make_step(cfg)``.
+each exposes ``build(cfg) -> MethodBundle`` and ``make_step(cfg)``
+(scribblevc: ``make_step(cfg, steps_per_epoch)``).
 
-Ported so far: fully_supervised, pce, dmpls, the five pCE + regularizer
+Ported: fully_supervised, pce, dmpls, the five pCE + regularizer
 methods of ``pce_regularized``, pce_random_walker (fully_supervised's step
 on sup_type="random_walker"), the semi-supervised mean_teacher, uamt,
 entropy_minimization and partially_supervised of ``mean_teacher``,
-deep_adversarial, ustm and s2l; scribblevc raises NotImplementedError
-naming its ROADMAP item.
+deep_adversarial, ustm, s2l and scribblevc: all 17 methods of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,17 +31,11 @@ _METHODS = {
     "deep_adversarial": "deep_adversarial",
     "ustm": "ustm",
     "s2l": "s2l",
+    "scribblevc": "scribblevc",
 }
-
-# method -> ROADMAP.md Queue 1 item that ports it
-_NOT_YET = {"scribblevc": 13}
 
 
 def get_method(name: str):
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP.md Queue 1, item "
-            f"{_NOT_YET[name]})")
     try:
         mod_name = _METHODS[name]
     except KeyError:

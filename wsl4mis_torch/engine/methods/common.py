@@ -39,6 +39,24 @@ class MethodBundle:
     host_hook: Callable | None = None  # (bundle, state, iter_num), run
                                        # after each iteration; updates
                                        # the state in place
+    predictor: Any | None = None    # VolumePredictor in place of the
+                                    # Trainer's argmax-of-the-model one
+    val_variables: Callable | None = None  # (state) -> extra forward
+                                    # kwargs of both validation rules
+                                    # (state the model needs beside its
+                                    # own tensors)
+    nan_val_metrics: bool = False   # ScribbleVC's NaN conventions and
+                                    # NaN-mean (val_2D_scribblevc.py:15-28)
+    dice_snapshot_threshold: float | None = None
+                                    # save {model}_{dice}_model.pth when
+                                    # the val dice beats it
+                                    # (train_ACDC_scribblevc.py:292-295)
+    select_predictor: Any | None = None
+                                    # a second predictor whose metric
+                                    # drives best-model selection (logged
+                                    # under info/val_select_*)
+    eval_extra: tuple = ()          # state.extra keys the eval forward
+                                    # needs, saved in inference checkpoints
 
 
 def compute_dtype(cfg: TrainConfig) -> torch.dtype:

@@ -1,5 +1,6 @@
-"""SGD and Adam with the reference semantics (port of
-``wsl4mis_tpu/engine/optim.py``).
+"""SGD, Adam and AdamW with the reference semantics (port of
+``wsl4mis_tpu/engine/optim.py`` and of the optax transforms the JAX
+methods use).
 
 torch.optim.SGD(momentum=0.9, weight_decay=1e-4) with poly decay: the
 weight decay is added to the gradient before the momentum accumulation,
@@ -73,6 +74,38 @@ def adam_init(params: dict[str, torch.Tensor]) -> dict:
 
 
 @torch.no_grad()
+def _adam_update(p: list, g: list, mu: list, nu: list, count: int,
+                 lr: float, b1: float, b2: float, eps: float,
+                 weight_decay: float = 0.0) -> None:
+    """Update `count` (from 1) of optax's adam / adamw over lists of
+    tensors, in place on `p`, `mu` and `nu`:
+
+        mu = b1 mu + (1 - b1) g,  nu = b2 nu + (1 - b2) g^2
+        p  = p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)
+
+    with mu_hat = mu / (1 - b1^t), nu_hat = nu / (1 - b2^t). Each product
+    rounded apart, as optax's expressions; 1 - b in double, then f32 (its
+    Python-float arithmetic), the bias corrections in f32 (its f32 power
+    of the count)."""
+    t = np.float32(count)
+    one = np.float32(1.0)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
+    torch._foreach_mul_(nu, b2)
+    sq = torch._foreach_mul(g, g)
+    torch._foreach_mul_(sq, 1.0 - b2)
+    torch._foreach_add_(nu, sq)
+    upd = torch._foreach_div(mu, float(one - np.float32(b1) ** t))
+    denom = torch._foreach_div(nu, float(one - np.float32(b2) ** t))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_div_(upd, denom)
+    if weight_decay:
+        torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(p, upd)
+
+
 def reference_adam(params: dict[str, torch.Tensor],
                    grads: dict[str, torch.Tensor], state: dict,
                    lr: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
@@ -82,22 +115,53 @@ def reference_adam(params: dict[str, torch.Tensor],
     (train_deep_adversarial_network_2D.py:111-112), in place on `params`
     and `state`, in optax's order: mu_hat / (sqrt(nu_hat) + eps)."""
     names = list(params)
-    p = [params[k] for k in names]
-    g = [grads[k] for k in names]
-    mu = [state["mu"][k] for k in names]
-    nu = [state["nu"][k] for k in names]
     state["count"] += 1
-    t = np.float32(state["count"])
-    one = np.float32(1.0)
-    # 1 - b in double, then f32 (as optax's Python-float arithmetic); the
-    # bias corrections in f32 (its f32 power of the count)
-    torch._foreach_mul_(mu, b1)
-    torch._foreach_add_(mu, g, alpha=1.0 - b1)
-    torch._foreach_mul_(nu, b2)
-    torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-    mu_hat = torch._foreach_div(mu, float(one - np.float32(b1) ** t))
-    denom = torch._foreach_div(nu, float(one - np.float32(b2) ** t))
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, eps)
-    torch._foreach_div_(mu_hat, denom)
-    torch._foreach_add_(p, mu_hat, alpha=-lr)
+    _adam_update([params[k] for k in names], [grads[k] for k in names],
+                 [state["mu"][k] for k in names],
+                 [state["nu"][k] for k in names], state["count"], lr, b1, b2,
+                 eps)
+
+
+class ReferenceAdamW:
+    """optax.adamw(lr, b1, b2, eps, weight_decay) at a constant learning
+    rate, ScribbleVC's optimizer (AdamW(5e-4, wd 5e-4, eps 1e-8),
+    train_ACDC_scribblevc.py:146-147), with ReferenceSGD's interface
+    (`schedule` included): the update of `_adam_update` with the decay on
+    every parameter (no mask: BN scale and bias and the cls token too).
+    Not torch.optim.AdamW, which decays the parameter before the Adam step
+    and so rounds in another order."""
+
+    def __init__(self, params, lr: float = 5e-4, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 5e-4):
+        self.params = list(params)
+        self.lr = lr
+        self.schedule = lambda count: lr
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        self.count += 1
+        _adam_update(self.params, grads, self.mu, self.nu, self.count,
+                     self.lr, self.b1, self.b2, self.eps, self.weight_decay)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for bufs, saved in ((self.mu, state["mu"]),
+                                (self.nu, state["nu"])):
+                for buf, v in zip(bufs, saved):
+                    buf.copy_(v)

@@ -10,13 +10,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from .optim import ReferenceSGD
+from .optim import ReferenceAdamW, ReferenceSGD
 
 
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    opt: ReferenceSGD
+    opt: ReferenceSGD | ReferenceAdamW
     step: int = 0
     extra: Any = None  # tensors in (nested) dicts: EMA params, a
                        # discriminator's params and Adam state

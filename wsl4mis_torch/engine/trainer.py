@@ -6,6 +6,15 @@ validation every ``val_every`` iterations with best-model checkpoints,
 periodic checkpoints every ``ckpt_every``, log.txt + stdout logging and
 the snapshot dir ``{root}/{exp}_{fold}/{sup_type}``.
 
+A method's bundle may change validation and checkpoints as the JAX
+trainer lets it (ScribbleVC does all of it): its own predictor and forward
+kwargs (``predictor``, ``val_variables``), NaN-aware metrics, a
+``select_predictor`` whose metric (logged under ``info/val_select_*``)
+drives best-model selection in place of the main one (``cfg.light_val``
+then skips the main pass), a ``{model}_{dice}_model.pth`` snapshot above
+``dice_snapshot_threshold``, the ``eval_extra`` state in every inference
+checkpoint. The logged LR is the optimizer's ``schedule``.
+
 Each step runs eagerly on cfg.device with per-step generators from
 (cfg.seed, iteration); metrics stay on the device until the logging
 cadence reads them.
@@ -20,7 +29,7 @@ import shutil
 import numpy as np
 
 from ..data.loader import prefetch
-from ..eval.val2d import VolumePredictor, evaluate_fold
+from ..eval.val2d import VolumePredictor, evaluate_fold, nanmean
 from ..utils.checkpoint import (
     restore_train_state,
     save_model_checkpoint,
@@ -30,7 +39,6 @@ from ..utils.device import resolve_device
 from ..utils.logging_utils import Timer, setup_run_logging
 from .config import TrainConfig
 from .methods.common import MethodBundle, split_rngs
-from .optim import poly_lr
 
 
 class Trainer:
@@ -47,9 +55,8 @@ class Trainer:
         self.state = bundle.state
         self.image_every = 20  # train_fully_supervised_2D.py:121
         self.data_iter = prefetch(bundle.data_iter, size=4)
-        self.predictor = VolumePredictor(bundle.model, cfg.patch_size,
-                                         device=self.device)
-        self.lr = poly_lr(cfg.base_lr, cfg.max_iterations)
+        self.predictor = bundle.predictor or VolumePredictor(
+            bundle.model, cfg.patch_size, device=self.device)
 
         self.writer = None
         if use_tensorboard:
@@ -96,24 +103,50 @@ class Trainer:
         lab = (vis["label"].cpu().numpy() * 50).astype(np.uint8)
         self.writer.add_image("train/GroundTruth", lab[None], step)
 
+    def _evaluate(self, predictor, variables_fn):
+        """(per-class metrics, mean dice, mean hd95) of one predictor."""
+        bundle = self.bundle
+        variables = None if variables_fn is None else variables_fn(
+            self.state)
+        metric_list = evaluate_fold(predictor, bundle.val_volumes,
+                                    self.cfg.num_classes,
+                                    nan_aware=bundle.nan_val_metrics,
+                                    variables=variables)
+        mean = (nanmean(metric_list) if bundle.nan_val_metrics
+                else metric_list.mean(axis=0))
+        return metric_list, float(mean[0]), float(mean[1])
+
     def validate(self, iter_num: int) -> tuple[float, float]:
-        """Mean (dice, hd95) over the val volumes; logs per-class tags."""
-        metric_list = evaluate_fold(self.predictor, self.bundle.val_volumes,
-                                    self.cfg.num_classes)
-        for class_i in range(self.cfg.num_classes - 1):
-            self._scalar(f"info/val_{class_i + 1}_dice",
-                         metric_list[class_i, 0], iter_num)
-            self._scalar(f"info/val_{class_i + 1}_hd95",
-                         metric_list[class_i, 1], iter_num)
-        performance = float(metric_list[:, 0].mean())
-        mean_hd95 = float(metric_list[:, 1].mean())
-        self._scalar("info/val_mean_dice", performance, iter_num)
-        self._scalar("info/val_mean_hd95", mean_hd95, iter_num)
+        """Mean (dice, hd95) over the val volumes, the one that drives
+        best-model selection: the select predictor's where the bundle has
+        one, else the main predictor's (logged with per-class tags)."""
+        bundle = self.bundle
+        select = bundle.select_predictor
+        if not (self.cfg.light_val and select is not None):
+            metric_list, performance, mean_hd95 = self._evaluate(
+                self.predictor, bundle.val_variables)
+            for class_i in range(self.cfg.num_classes - 1):
+                self._scalar(f"info/val_{class_i + 1}_dice",
+                             metric_list[class_i, 0], iter_num)
+                self._scalar(f"info/val_{class_i + 1}_hd95",
+                             metric_list[class_i, 1], iter_num)
+            self._scalar("info/val_mean_dice", performance, iter_num)
+            self._scalar("info/val_mean_hd95", mean_hd95, iter_num)
+            if select is None:
+                return performance, mean_hd95
+            logging.info("iteration %d : val(train-rule) dice %f", iter_num,
+                         performance)
+        _, performance, mean_hd95 = self._evaluate(
+            select, bundle.val_variables)
+        self._scalar("info/val_select_mean_dice", performance, iter_num)
+        self._scalar("info/val_select_mean_hd95", mean_hd95, iter_num)
+        logging.info("iteration %d : val(select-rule) dice %f", iter_num,
+                     performance)
         return performance, mean_hd95
 
     def _save_model(self, name: str):
         save_model_checkpoint(os.path.join(self.snapshot_path, name),
-                              self.state)
+                              self.state, eval_extra=self.bundle.eval_extra)
 
     def train(self) -> str:
         cfg = self.cfg
@@ -134,7 +167,7 @@ class Trainer:
 
             if iter_num % cfg.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items() if k != "vis"}
-                lr = self.lr(iter_num)
+                lr = self.state.opt.schedule(iter_num)
                 self._scalar("info/lr", lr, iter_num)
                 for k, v in host.items():
                     self._scalar(f"info/{k}", v, iter_num)
@@ -146,6 +179,10 @@ class Trainer:
 
             if iter_num > 0 and iter_num % cfg.val_every == 0:
                 performance, mean_hd95 = self.validate(iter_num)
+                thresh = self.bundle.dice_snapshot_threshold
+                if thresh is not None and performance > thresh:
+                    self._save_model(
+                        f"{cfg.model}_{str(performance)[0:6]}_model.pth")
                 if performance > best_performance:
                     best_performance = performance
                     self._save_model(f"iter_{iter_num}_dice_"

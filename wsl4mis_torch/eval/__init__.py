@@ -1,7 +1,13 @@
 """Metrics and batched volume validation of the port."""
 
-from .metrics import calculate_metric_percase, dice_coefficient, hd95
+from .metrics import (
+    calculate_metric_percase,
+    calculate_metric_percase_nan,
+    dice_coefficient,
+    hd95,
+)
 from .val2d import VolumePredictor, evaluate_fold
 
 __all__ = ["VolumePredictor", "calculate_metric_percase",
-           "dice_coefficient", "evaluate_fold", "hd95"]
+           "calculate_metric_percase_nan", "dice_coefficient",
+           "evaluate_fold", "hd95"]

@@ -1,5 +1,6 @@
 """Binary segmentation metrics, medpy-parity on scipy (the port's copy of
-``wsl4mis_tpu/eval/metrics.py``: Dice and HD95).
+``wsl4mis_tpu/eval/metrics.py``: Dice and HD95, and ScribbleVC's
+NaN-aware per-case metric).
 
 Surface voxels are mask ^ binary_erosion(mask) with a connectivity-1
 structuring element; distances are the EDT of the complement of the other
@@ -72,3 +73,20 @@ def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray):
     if pred.sum() > 0 and gt.sum() > 0:
         return dice_coefficient(pred, gt), hd95(pred, gt)
     return 0.0, 0.0
+
+
+def calculate_metric_percase_nan(pred: np.ndarray, gt: np.ndarray):
+    """(dice, hd95) with ScribbleVC's NaN conventions
+    (val_2D_scribblevc.py:15-28): a class absent from both scores (nan,
+    nan), so a NaN-mean skips it; absent from gt but predicted (0, 0);
+    present but not predicted (dice, nan)."""
+    pred = pred > 0
+    gt = gt > 0
+    if gt.sum() == 0 and pred.sum() == 0:
+        return np.nan, np.nan
+    if gt.sum() == 0:
+        return 0.0, 0.0
+    dice = dice_coefficient(pred, gt)
+    if pred.sum() == 0:
+        return dice, np.nan
+    return dice, hd95(pred, gt)

@@ -1,18 +1,22 @@
 """Volume-wise validation (port of ``wsl4mis_tpu/eval/val2d.py``).
 
 Each slice of a volume is order-0 zoomed to the patch size, run through
-the network in eval mode, argmaxed, and zoomed back (order 0) to the
-native resolution; per-class (dice, hd95) against the dense 3D label are
-averaged over the volumes. Slices run in 64-slice chunks on the device;
-metrics stay on the host (scipy EDT).
+the network in eval mode, turned into a class map (argmax, or the
+predictor's decision rule), and zoomed back (order 0) to the native
+resolution; per-class (dice, hd95) against the dense 3D label are averaged
+over the volumes (or NaN-averaged, with ScribbleVC's NaN conventions).
+Slices run in 64-slice chunks on the device; metrics stay on the host
+(scipy EDT).
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
-from .metrics import calculate_metric_percase
+from .metrics import calculate_metric_percase, calculate_metric_percase_nan
 
 
 def _zoom_index(n_out: int, n_in: int) -> np.ndarray:
@@ -31,8 +35,10 @@ def _zoom_stack(volume: np.ndarray, out_hw) -> np.ndarray:
 
 
 class VolumePredictor:
-    """Batched slice-stack inference of `model` (returning logits, or a
-    tuple whose first element is the main logits) on `device`.
+    """Batched slice-stack inference of `model` on `device`: the class map
+    is decision_fn(outputs) (B,H,W), by default the argmax of the logits
+    (or of the first element of a tuple of outputs). forward_kwargs go to
+    every forward (e.g. ScribbleVC's use_class_rep).
 
     Volumes are padded to a multiple of `bucket` slices and concatenated;
     the stack runs in `chunk`-slice calls. The val set does not change
@@ -40,20 +46,21 @@ class VolumePredictor:
     identities (the cache holds the volume list, so no id is reused)."""
 
     def __init__(self, model, patch_size=(256, 256), device="cuda",
-                 bucket: int = 8, chunk: int = 64):
+                 bucket: int = 8, chunk: int = 64, decision_fn=None,
+                 forward_kwargs=None):
         self.model = model
         self.patch_size = tuple(patch_size)
         self.device = torch.device(device)
         self.bucket = bucket
         self.chunk = max(bucket, chunk)
+        self.decision_fn = decision_fn or _argmax_decision
+        self.forward_kwargs = dict(forward_kwargs or {})
         self._cache = None
 
     @torch.no_grad()
-    def _predict(self, x: torch.Tensor) -> np.ndarray:
-        out = self.model(x, train=False)
-        if isinstance(out, (tuple, list)):
-            out = out[0]
-        return out.argmax(-1).to(torch.int8).cpu().numpy()
+    def _predict(self, x: torch.Tensor, variables: dict) -> np.ndarray:
+        out = self.model(x, train=False, **self.forward_kwargs, **variables)
+        return self.decision_fn(out).to(torch.int8).cpu().numpy()
 
     def _zoom_back(self, pred: np.ndarray, h: int, w: int) -> np.ndarray:
         ph, pw = self.patch_size
@@ -87,33 +94,55 @@ class VolumePredictor:
         ]
         return chunks, depths, shapes
 
-    def _run(self, chunks, depths, shapes):
-        flat = np.concatenate([self._predict(x) for x in chunks])
+    def _run(self, chunks, depths, shapes, variables=None):
+        flat = np.concatenate([self._predict(x, variables or {})
+                               for x in chunks])
         preds, off = [], 0
         for (h, w), (d, dp) in zip(shapes, depths):
             preds.append(self._zoom_back(flat[off:off + d], h, w))
             off += dp
         return preds
 
-    def predict_volumes(self, images) -> list[np.ndarray]:
-        """Per-volume (D, H, W) int32 predictions of a cached val set."""
+    def predict_volumes(self, images, variables=None) -> list[np.ndarray]:
+        """Per-volume (D, H, W) int32 predictions of a cached val set;
+        variables: more forward kwargs for this prediction."""
         key = tuple(id(im) for im in images)
         if self._cache is None or self._cache[0] != key:
             self._cache = (key, list(images), *self._stack(images))
-        return self._run(*self._cache[2:])
+        return self._run(*self._cache[2:], variables)
 
     def predict_volume(self, image: np.ndarray) -> np.ndarray:
         """(D, H, W) int32 prediction of one volume (not cached)."""
         return self._run(*self._stack([image]))[0]
 
 
-def evaluate_fold(predictor: VolumePredictor, volumes,
-                  classes: int) -> np.ndarray:
-    """Mean over volumes of the (classes-1, 2) per-class [dice, hd95]."""
-    preds = predictor.predict_volumes([vol["image"] for vol in volumes])
-    per_volume = [
-        [calculate_metric_percase(pred == i, np.asarray(vol["label"]) == i)
+def _argmax_decision(out):
+    if isinstance(out, (tuple, list)):
+        out = out[0]
+    return out.argmax(-1)
+
+
+def evaluate_fold(predictor: VolumePredictor, volumes, classes: int,
+                  nan_aware: bool = False, variables=None) -> np.ndarray:
+    """Mean over volumes of the (classes-1, 2) per-class [dice, hd95];
+    with nan_aware, ScribbleVC's conventions: a class absent from a volume
+    scores NaN there and the mean is a NaN-mean
+    (train_ACDC_scribblevc.py:273-288)."""
+    metric = (calculate_metric_percase_nan if nan_aware
+              else calculate_metric_percase)
+    preds = predictor.predict_volumes([vol["image"] for vol in volumes],
+                                      variables)
+    per_volume = np.asarray([
+        [metric(pred == i, np.asarray(vol["label"]) == i)
          for i in range(1, classes)]
         for pred, vol in zip(preds, volumes)
-    ]
-    return np.asarray(per_volume, np.float64).mean(axis=0)
+    ], np.float64)
+    return nanmean(per_volume) if nan_aware else per_volume.mean(axis=0)
+
+
+def nanmean(a: np.ndarray) -> np.ndarray:
+    """np.nanmean over axis 0, NaN without a warning where a column is all
+    NaN (a class absent from every volume)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return np.nanmean(a, axis=0)

@@ -1,16 +1,17 @@
 """Model factory (port of ``wsl4mis_tpu/models/factory.py``).
 
-This slice has UNet and UNet_CCT; the rest of the zoo is ROADMAP Queue 1,
-item 14.
+This slice has UNet, UNet_CCT and ScribbleVC; the rest of the zoo is
+ROADMAP Queue 1, item 14.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .scribblevc import ScribbleVC
 from .unet import UNet, UNetCCT
 
-_REGISTRY = {"unet": UNet, "unet_cct": UNetCCT}
+_REGISTRY = {"unet": UNet, "unet_cct": UNetCCT, "scribblevc": ScribbleVC}
 _NOT_YET = {"unet_cct_3h", "unet_ds", "unet_urds", "pnet", "efficient_unet"}
 
 

@@ -32,21 +32,26 @@ class FusedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def statistics(self, n: int, train: bool, moments=None):
+        """(mean, var) to normalize by: the running statistics in eval
+        mode; in train mode those of the batch from its moments (sum x, sum
+        x^2) over n values per channel, folded into the running ones."""
+        if not train:
+            return self.mean, self.var
+        s1, s2 = moments
+        mean, mean2 = s1 / n, s2 / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x, train: bool, moments=None):
         """x (..., C); moments (sum x, sum x^2) over all but C, required
         in train mode."""
-        if not train:
-            mean, var = self.mean, self.var
-        else:
-            n = x.numel() // x.shape[-1]
-            s1, s2 = moments
-            mean, mean2 = s1 / n, s2 / n
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.mean.copy_(m * self.mean + (1 - m) * mean)
-                    self.var.copy_(m * self.var + (1 - m) * var)
+        mean, var = self.statistics(x.numel() // x.shape[-1], train, moments)
         mul = self.scale * torch.rsqrt(var + self.epsilon)
         add = self.bias - mean * mul
         return x * mul.to(x.dtype) + add.to(x.dtype)

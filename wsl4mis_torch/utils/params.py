@@ -16,9 +16,27 @@ f32.
     BatchNorm_0 | BatchNorm_1          -> bn1 | bn2
     _Conv4x4s2_i / Conv_0  (FCDiscriminator) -> convs.i
     Dense_0                            -> dense
+
+A ScribbleVC tree maps by its own renaming (``scribblevc_key``, which the
+model class names as its ``flax_key``), in flax's layouts too: a wrapper scope and the flax module
+inside it are one module of the port (``Conv_k / Conv_0``, ``BN_k /
+BatchNorm_0``, ``Dense_k / Dense_0``, ``conv_cls_conv / Conv_0``,
+``trans_cls_head / Dense_0``), and
+
+    Conv_k | BN_k | BatchNorm_k | Dense_k | LayerNorm_k -> convk | bnk | bnk | densek | normk
+    TokenAttention_0 | Mlp_0 | TransBlock_0 -> attn | mlp | trans_block
+    FCUDown_0 | FCUUp_0                -> fcu_down | fcu_up
+    at the top: Conv_0 -> patch_embed, Conv_1 -> seg_head,
+    Conv_2..Conv_5 -> trans_up.0..3, Conv_6 -> trans_head,
+    UNetUpBilinear_i -> ups.i
+
+Its ``class_memory`` collection loads into a memory dict of the model
+(``ScribbleVC.init_memory``).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -69,6 +87,39 @@ def _torch_key(path: tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+_SVC_WRAPPED = {"Conv_0", "BatchNorm_0", "Dense_0"}
+_SVC_WRAPPER = re.compile(
+    r"^((Conv|BN|Dense)_\d+|conv_cls_conv|trans_cls_head)$")
+_SVC_NAMES = {"TokenAttention_0": "attn", "Mlp_0": "mlp",
+              "TransBlock_0": "trans_block", "FCUDown_0": "fcu_down",
+              "FCUUp_0": "fcu_up"}
+_SVC_TOP = {"Conv_0": "patch_embed", "Conv_1": "seg_head",
+            "Conv_2": "trans_up.0", "Conv_3": "trans_up.1",
+            "Conv_4": "trans_up.2", "Conv_5": "trans_up.3",
+            "Conv_6": "trans_head"}
+_SVC_INDEXED = {"Conv": "conv", "BN": "bn", "BatchNorm": "bn",
+                "Dense": "dense", "LayerNorm": "norm"}
+
+
+def scribblevc_key(path: tuple[str, ...]) -> str:
+    out: list[str] = []
+    for i, p in enumerate(path):
+        if i > 0 and p in _SVC_WRAPPED and _SVC_WRAPPER.match(path[i - 1]):
+            continue  # the flax module inside a wrapper scope
+        if i == 0 and p in _SVC_TOP:
+            out.append(_SVC_TOP[p])
+        elif p.startswith("UNetUpBilinear_"):
+            out += ["ups", p.split("_")[1]]
+        elif p in _SVC_NAMES:
+            out.append(_SVC_NAMES[p])
+        elif "_" in p and p.rsplit("_", 1)[0] in _SVC_INDEXED:
+            kind, k = p.rsplit("_", 1)
+            out.append(_SVC_INDEXED[kind] + k)
+        else:
+            out.append(p)
+    return ".".join(out)
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -77,17 +128,33 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def from_flax(variables_np) -> dict[str, torch.Tensor]:
-    """flax {"params", "batch_stats"} tree of numpy arrays -> state_dict."""
+def from_flax(variables_np, key=None) -> dict[str, torch.Tensor]:
+    """flax {"params", "batch_stats"} tree of numpy arrays -> state_dict,
+    each flax path renamed by `key` (default: the UNet / UNetCCT /
+    FCDiscriminator renaming)."""
+    key = key or _torch_key
     state = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(dict(variables_np.get(collection, {}))):
-            state[_torch_key(path)] = torch.from_numpy(
+            state[key(path)] = torch.from_numpy(
                 np.array(value, dtype=np.float32))
     return state
 
 
-def load_flax_variables(model: torch.nn.Module, variables_np) -> None:
-    """Fill `model` (UNet, UNetCCT or FCDiscriminator) from a flax variable
-    tree; strict, so a missing or extra entry raises."""
-    model.load_state_dict(from_flax(variables_np), strict=True)
+def load_flax_variables(model: torch.nn.Module, variables_np,
+                        memory: dict | None = None) -> None:
+    """Fill `model` (UNet, UNetCCT, FCDiscriminator or ScribbleVC) from a
+    flax variable tree; strict, so a missing or extra entry raises. With
+    `memory` (a ScribbleVC memory dict), its tensors take the tree's
+    class_memory collection, in place. A model class with a `flax_key`
+    renames by it."""
+    model.load_state_dict(
+        from_flax(variables_np, getattr(model, "flax_key", None)),
+        strict=True)
+    if memory is not None:
+        src = variables_np["class_memory"]
+        if set(src) != set(memory):
+            raise KeyError(f"class_memory {sorted(src)} != {sorted(memory)}")
+        with torch.no_grad():
+            for k, v in memory.items():
+                v.copy_(torch.from_numpy(np.array(src[k], dtype=np.float32)))
