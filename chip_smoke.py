@@ -87,10 +87,27 @@ failure:
    the card (kernels) against the same model on the CPU (plain
    versions), beside the CPU's own gradient spread and a known-wrong
    variant (bf16 kernels); see reference_check for the tolerances.
+5. The entry points (``python -m wsl4mis_torch.cli``) at full width on
+   the phantoms: fully_supervised (batch 24) and dmpls (UNet_CCT, batch
+   6) through the train command's parser over their scripts' defaults
+   (with h5py, the whole command on an H5 tree of the same data; without
+   it, its argv and config and the bundle from memory), validated before
+   step 0, at half and at the end of the run: the final mean val Dice
+   must reach its LEARN_RUNS bound and rise LEARN_RISE over the untrained
+   one. The test command's configuration over each run's best
+   checkpoint scores the val volumes (score_volumes): per-class Dice
+   equal to the validation's that saved it (1e-6), HD95 and ASD finite,
+   the NIfTI predictions read back bit for bit with their spacing. Then
+   fully_supervised with --aug_mode host, 5 steps at batch 24 on slices
+   of a native 212x232: its launches must hold no augment. Launch
+   counters are zeroed before each run and each inference, and must show
+   their expected counts.
 
 Output: detail lines, a per-conv table of the batch-24 step's conv
-launches (conv-table lines), the per-kernel JSON line, the nvidia-smi
-line, and last {"ok": true, "device": {...}}. All records also go to one
+launches (conv-table lines), the entry points' line (entry-points: steps,
+ms/step, Dice, seconds a part, the card), the per-kernel JSON line (its
+launches summed over phases 3 and 5), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
 """
 
@@ -734,13 +751,14 @@ def eval_counts(model_name):
     return {"conv3x3_fwd": _unet_sizes(model_name)[2], "maxpool_fwd": 4}
 
 
-def per_step_counts(model_name, method=None):
+def per_step_counts(model_name, method=None, host_aug=False):
     """Expected launches per training step. A train-mode forward: every
     ConvBlock conv a stats launch, each head a fwd launch, the encoder's
     four pools; a backward: every conv but the stem a dgrad (fwd) launch,
     every conv a wgrad launch, four pool backwards; an eval forward:
     eval_counts. One augment launch (s2l: one of its S2L variant, which
-    launches no fill-flag kernel), and one GatedCRF contraction for
+    launches no fill-flag kernel; none with host augmentation, whose
+    batches arrive augmented), and one GatedCRF contraction for
     pce_gatedcrf (its backward is an elementwise scale, no launch).
     ScribbleVC's step: one augment and one GatedCRF contraction, no conv
     or pool kernel."""
@@ -754,7 +772,8 @@ def per_step_counts(model_name, method=None):
     return {"conv3x3_fwd_stats": blocks * fwd,
             "conv3x3_fwd": decoders * fwd + (convs - 1) * bwd
             + ev["conv3x3_fwd"] * evl,
-            "conv3x3_wgrad": convs * bwd, "augment": int(method != "s2l"),
+            "conv3x3_wgrad": convs * bwd,
+            "augment": int(method != "s2l" and not host_aug),
             "augment_s2l": int(method == "s2l"),
             "maxpool_fwd": 4 * fwd + ev["maxpool_fwd"] * evl,
             "maxpool_bwd": 4 * bwd, "gated_crf": int(method == "pce_gatedcrf")}
@@ -833,14 +852,15 @@ def method_bundle(cfg, data, val):
     streams like its own). The semi-supervised methods, ustm, s2l and
     scribblevc build theirs with make_bundle (the semi family: data =
     (labeled, unlabeled), the paired stream over the staged [labeled;
-    unlabeled]); the others as their build() does."""
+    unlabeled]); the others as their build() does (with aug_mode "host",
+    data needs its native slices: zoomed_with_native)."""
     from wsl4mis_torch.engine.methods import get_method
     from wsl4mis_torch.engine.methods.common import (
         MethodBundle,
-        index_batches,
         make_model_and_state,
         paired_data,
         stage_dataset,
+        train_batches,
     )
 
     mod = get_method(cfg.method)
@@ -853,10 +873,10 @@ def method_bundle(cfg, data, val):
         model, state = make_model_and_state(cfg)
         bundle = MethodBundle(
             model=model, state=state, step_fn=mod.make_step(cfg),
-            data_iter=index_batches(cfg, data), val_volumes=val,
+            data_iter=train_batches(cfg, data), val_volumes=val,
             steps_per_epoch=len(data) // cfg.batch_size,
             aux=stage_dataset(cfg, data))
-    return bundle, lambda: index_batches(cfg, data)
+    return bundle, lambda: train_batches(cfg, data)
 
 
 def sup_type_of(method):
@@ -1406,6 +1426,273 @@ def svc_reference_check(seed, dev="cuda", hw=SVC_REF_HW, draws=2,
     return rec
 
 
+# ---- phase 5: the entry points ----------------------------------------------
+
+# (script, model, batch, steps, final mean val Dice bound) of the learning
+# check: fully_supervised and dmpls through the train command line, on the
+# phantoms, a validation at half and at the end of each run. Each bound
+# sits below the card's Dice and the JAX package's on the CPU from the
+# same initial weights (PERF.md; tools/jax_learning_check.py).
+LEARN_RUNS = (
+    ("train_fully_supervised_2D", "unet", N, 200, 0.9),
+    ("train_weakly_supervised_segmentation_pCE_ours_proposed", "unet_cct",
+     DMPLS_N, 300, 0.5),
+)
+LEARN_RISE = 0.3  # the final Dice over the untrained one, at the least
+HOST_AUG_STEPS = 5
+HOST_AUG_NATIVE = (212, 232)  # the host-augmented slices' native size
+
+
+def entry_argv(batch, steps, val_every, snap_root, seed, hw=HW):
+    """The flags of a train command line over a script's defaults, less
+    --device (the JAX package's has none): batch, steps (the poly LR's
+    horizon too), the validation cadence, one checkpoint at the end."""
+    return ["--batch_size", str(batch), "--max_iterations", str(steps),
+            "--val_every", str(val_every), "--ckpt_every", str(steps),
+            "--log_every", str(max(steps // 4, 1)), "--seed", str(seed),
+            "--snapshot_root", snap_root, "--patch_size", f"[{hw}, {hw}]"]
+
+
+def write_h5_tree(root, dense, scribble, val, fold):
+    """An ACDC H5 tree of in-memory slices (label and scribble keys, ten
+    slices a train patient of `fold`) and volumes (one a test patient)."""
+    import h5py
+    import numpy as np
+
+    from wsl4mis_torch.data import fold_ids
+
+    train_ids, test_ids = fold_ids(fold)
+    os.makedirs(os.path.join(root, "ACDC_training_slices"), exist_ok=True)
+    os.makedirs(os.path.join(root, "ACDC_training_volumes"), exist_ok=True)
+    for i in range(len(dense)):
+        name = f"{train_ids[i // 10]}_frame01_slice_{i % 10}.h5"
+        with h5py.File(os.path.join(root, "ACDC_training_slices", name),
+                       "w") as f:
+            f["image"] = dense.images[i]
+            f["label"] = dense.labels[i].astype(np.uint8)
+            f["scribble"] = scribble.labels[i].astype(np.uint8)
+    for case, vol in zip(test_ids, val):
+        with h5py.File(os.path.join(root, "ACDC_training_volumes",
+                                    f"{case}_frame01.h5"), "w") as f:
+            f["image"] = vol["image"]
+            f["label"] = vol["label"].astype(np.uint8)
+    return root
+
+
+def cli_trainer(script, argv, data, val, tree=None):
+    """The Trainer of `python -m wsl4mis_torch.cli train <script> argv`:
+    with an H5 tree (h5py present), the command's own (cli.make_trainer,
+    the bundle read from the tree); else the same argv through the
+    command's parser and config, the bundle from in-memory data."""
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.engine.trainer import Trainer
+
+    method, defaults = cli.resolve_script(script)
+    if tree is not None:
+        return cli.make_trainer(method, defaults, argv + ["--root_path", tree])
+    args = cli.build_parser(defaults).parse_args(argv)
+    cfg = cli.config_from_args(args, method)
+    cli.set_deterministic(args.deterministic)
+    bundle, _ = method_bundle(cfg, data, val)
+    return Trainer(cfg, bundle, use_tensorboard=False)
+
+
+def sync(dev):
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_cli(script, model_name, argv, data, val, tree=None, dev="cuda"):
+    """Train through the command line; check the launches (a host-augmented
+    run: no augment launch), finite losses and the checkpoints; record the
+    mean val Dice before step 0 and the per-class metrics of every
+    validation."""
+    import numpy as np
+
+    trainer = cli_trainer(script, argv, data, val, tree)
+    cfg, bundle = trainer.cfg, trainer.bundle
+    before = trainer._evaluate(trainer.predictor, bundle.val_variables)[1]
+    evals, losses = [], []
+    evaluate, step_fn = trainer._evaluate, bundle.step_fn
+
+    def recording_eval(predictor, variables_fn):
+        t0 = time.perf_counter()
+        out = evaluate(predictor, variables_fn)
+        evals.append((out[0], time.perf_counter() - t0))
+        return out
+
+    def recording_step(state, batch, rngs, aux=None):
+        m = step_fn(state, batch, rngs, aux)
+        losses.append(m["total_loss"])
+        return m
+
+    trainer._evaluate, bundle.step_fn = recording_eval, recording_step
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    trainer.train()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = cfg.max_iterations
+    host = cfg.aug_mode == "host"
+    expected = {k: v * steps for k, v in per_step_counts(
+        model_name, cfg.method, host_aug=host).items()}
+    depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in bundle.val_volumes)
+    for k, v in eval_counts(model_name).items():
+        expected[k] += v * -(-depth // EVAL_N) * len(evals)
+    loss_vals = [float(v) for v in losses]
+    dice = [float(m[:, 0].mean()) for m, _ in evals]
+    val_s = sum(s for _, s in evals)
+    rec = {"script": script, "method": cfg.method, "batch": cfg.batch_size,
+           "steps": steps, "aug_mode": cfg.aug_mode, "launches": counts,
+           "expected": expected, "losses": loss_vals,
+           "dice_before": before, "val_dice": dice,
+           "val_per_class": [m.tolist() for m, _ in evals],
+           "wall_s": wall, "val_s": val_s,
+           "ms_per_step": 1e3 * (wall - val_s) / steps}
+    expect(counts == expected,
+           f"{script}: launches {counts} != {expected}")
+    expect(len(loss_vals) == steps and all(np.isfinite(loss_vals)),
+           f"{script}: losses {loss_vals}")
+    names = [f"iter_{steps}.pth", "latest_full.ckpt"]
+    if evals:
+        names.append(f"{cfg.model}_best_model.pth")
+    for name in names:
+        expect(os.path.isfile(os.path.join(cfg.snapshot_path, name)),
+               f"{script}: checkpoint {name} missing")
+    return trainer, rec, [m for m, _ in evals]
+
+
+def check_inference(trainer, evals, model_name, dev="cuda"):
+    """The test command's configuration over the run's
+    {model}_best_model.pth, scored on the run's val volumes (score_volumes,
+    which inference_fold runs on the volumes it reads): per-class Dice
+    equal to the validation's that saved the checkpoint (1e-6), HD95 and
+    ASD finite, every _pred.nii.gz equal to the prediction with the spacing
+    written; the launches one eval forward a 64-slice chunk."""
+    import numpy as np
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.data import read_nifti
+    from wsl4mis_torch.eval.infer import (
+        checkpoint_path,
+        load_model,
+        score_volumes,
+    )
+
+    cfg = trainer.cfg
+    icfg = cli.inference_config(cli.test_parser().parse_args([
+        "--exp", cfg.exp, "--model", cfg.model, "--fold", cfg.fold,
+        "--sup_type", cfg.sup_type, "--snapshot_root", cfg.snapshot_root,
+        "--checkpoint", f"{cfg.model}_best_model.pth", "--device", dev]))
+    path, snapshot = checkpoint_path(icfg, icfg.folds[0])
+    save_dir = os.path.join(snapshot, f"{icfg.model}_predictions")
+    os.makedirs(save_dir, exist_ok=True)
+    volumes = list(trainer.bundle.val_volumes)
+    t0 = time.perf_counter()
+    model = load_model(icfg, path)
+    reset_counts()
+    avg, preds = score_volumes(icfg, model, volumes, save_dir)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in volumes)
+    expected = {k: v * -(-depth // EVAL_N)
+                for k, v in eval_counts(model_name).items()}
+    dice = [float(m[:, 0].mean()) for m in evals]
+    best = evals[dice.index(max(dice))][:, 0]
+    spacing = tuple(float(s) for s in icfg.default_spacing)
+    read_back = []
+    for vol, pred in zip(volumes, preds):
+        img = read_nifti(os.path.join(save_dir, f"{vol['case']}_pred.nii.gz"))
+        read_back.append(bool(np.array_equal(img.array_zyx,
+                                             pred.astype(np.float32)))
+                         and img.spacing == spacing)
+    rec = {"checkpoint": os.path.basename(path), "metrics": avg.tolist(),
+           "val_dice": best.tolist(),
+           "dice_err": float(np.abs(avg[:, 0] - best).max()),
+           "nifti_equal": read_back, "launches": counts,
+           "expected": expected, "seconds": seconds}
+    expect(rec["dice_err"] <= 1e-6,
+           f"inference: per-class Dice {avg[:, 0]} != validation's {best}")
+    expect(np.isfinite(avg).all(), f"inference: metrics {avg}")
+    expect(all(read_back), f"inference: NIfTI read-back {read_back}")
+    expect(counts == expected,
+           f"inference: launches {counts} != {expected}")
+    return rec
+
+
+def entry_points(seed, data, scribbles, val, card, dev="cuda", hw=HW,
+                 runs=LEARN_RUNS, host_steps=HOST_AUG_STEPS,
+                 host_native=HOST_AUG_NATIVE):
+    """The phase: each LEARN_RUNS run through the train command line (the
+    learning check: its final mean val Dice at least its bound and
+    LEARN_RISE over the untrained Dice), the test command on its best
+    checkpoint, then fully_supervised with --aug_mode host on slices of a
+    native size (no augment launch). With h5py the command reads an H5
+    tree of the same data; without it the in-memory bundle."""
+    import importlib.util
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.data import synthetic_slices, zoomed_with_native
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke", "entry")
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    out = {"card": card, "h5py": have_h5py, "runs": [], "seconds": {}}
+    for script, model_name, batch, steps, bound in runs:
+        t0 = time.perf_counter()
+        train = scribbles if model_name == "unet_cct" else data
+        method, defaults = cli.resolve_script(script)
+        tree = None
+        if have_h5py:
+            tree = write_h5_tree(os.path.join(base, f"{method}_data"), data,
+                                 scribbles, val, defaults["fold"])
+        argv = entry_argv(batch, steps, steps // 2, base, seed, hw) + [
+            "--device", dev]
+        trainer, rec, evals = run_cli(script, model_name, argv, train, val,
+                                      tree, dev)
+        rec["inference"] = check_inference(trainer, evals, model_name, dev)
+        rec["bound"] = bound
+        rec["seconds"] = time.perf_counter() - t0
+        out["runs"].append(rec)
+        out["seconds"][method] = rec["seconds"]
+        expect(rec["val_dice"][-1] >= bound and rec["val_dice"][-1]
+               >= rec["dice_before"] + LEARN_RISE,
+               f"{script}: val Dice {rec['dice_before']} -> "
+               f"{rec['val_dice']}, bound {bound}, rise {LEARN_RISE}")
+    t0 = time.perf_counter()
+    raw = synthetic_slices(2 * N, host_native, seed=seed + 3)
+    tree = None
+    if have_h5py:
+        tree = write_h5_tree(os.path.join(base, "host_data"), raw, raw, val,
+                             "fold5")
+    argv = entry_argv(N, host_steps, 10 ** 9, os.path.join(base, "host"),
+                      seed, hw) + ["--device", dev, "--aug_mode", "host"]
+    _, rec, _ = run_cli("train_fully_supervised_2D", "unet", argv,
+                        zoomed_with_native(raw, (hw, hw)), val, tree, dev)
+    out["host_aug"] = rec
+    out["seconds"]["host_aug"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    line = {"card": card, "h5py": have_h5py, "phase_s": out["phase_s"],
+            "seconds": out["seconds"], "runs": [
+                {k: r[k] for k in ("method", "batch", "steps", "ms_per_step",
+                                   "wall_s", "dice_before", "val_dice",
+                                   "bound")}
+                | {"inference_dice_err": r["inference"]["dice_err"],
+                   "inference_s": r["inference"]["seconds"]}
+                for r in out["runs"]],
+            "host_aug": {"steps": rec["steps"],
+                         "ms_per_step": rec["ms_per_step"],
+                         "augment_launches": rec["launches"]["augment"],
+                         "losses": rec["losses"]}}
+    print("entry-points " + json.dumps(line), flush=True)
+    return out
+
+
 # ---- main --------------------------------------------------------------------
 
 
@@ -1812,9 +2099,14 @@ def main(argv=None):
     ref = reference_check(args.seed)
     svc_ref = svc_reference_check(args.seed)
     phase_s["reference"] = time.perf_counter() - t0 - sum(phase_s.values())
+    # last: the train command sets cuDNN deterministic (--deterministic 1)
+    entry = entry_points(args.seed, data, scribbles, val, card)
+    phase_s["entry"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
-    launches = {k: sum(r["launches"][k] for r in runs)
+    counted = runs + entry["runs"] + [entry["host_aug"]] + [
+        r["inference"] for r in entry["runs"]]
+    launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
     expect(not idle, f"kernels never launched on a training path: {idle}")
@@ -1827,7 +2119,7 @@ def main(argv=None):
               "sass_mma": sass,
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
-              "runs": runs,
+              "runs": runs, "entry": entry,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

@@ -5,8 +5,11 @@ to are those of the port's UNet, UNet_CCT and ScribbleVC training steps
 ScribbleVC's synthetic set opens the memory gate inside its run, its pool
 and GatedCRF checks run (plain against plain) at tiny sizes, its kernel
 summary lists every kernel with every key, its reference check's
-known-wrong variant runs every conv kernel in bf16, and its ScribbleVC
-card-versus-CPU check runs (CPU against CPU) at a narrow width."""
+known-wrong variant runs every conv kernel in bf16, its ScribbleVC
+card-versus-CPU check runs (CPU against CPU) at a narrow width, and its
+entry-points phase (the train command's argv and config, a host-augmented
+run with no augment launch, the test command's check of the best
+checkpoint) runs with narrow models, from an H5 tree and from memory."""
 
 import copy
 import functools
@@ -21,7 +24,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
-from wsl4mis_torch.data import augment_device, synthetic_slices  # noqa: E402
+from wsl4mis_torch.data import (  # noqa: E402
+    augment_device,
+    synthetic_slices,
+    synthetic_volumes,
+    zoomed_with_native,
+)
 from wsl4mis_torch.engine.config import TrainConfig  # noqa: E402
 from wsl4mis_torch.engine.methods import get_method  # noqa: E402
 from wsl4mis_torch.engine.methods import s2l as ts2l  # noqa: E402
@@ -659,3 +667,108 @@ def test_kernel_classes_split_port_library_and_the_rest():
         "port": pytest.approx(0.05),
         "library_matmul_conv": pytest.approx(0.13),
         "other": pytest.approx(0.15)}
+
+
+def _count_launches(monkeypatch):
+    """chip_smoke's launch counters, read from the calls that reach each
+    wrapper (on the card each call is one launch)."""
+    calls = {k: 0 for k in chip_smoke.per_step_counts("unet")}
+    _count_wrapper_calls(monkeypatch, calls)
+    monkeypatch.setattr(chip_smoke, "launch_counts", lambda: dict(calls))
+    monkeypatch.setattr(chip_smoke, "reset_counts",
+                        lambda: calls.update(dict.fromkeys(calls, 0)))
+    return calls
+
+
+@pytest.fixture
+def narrow_entry(monkeypatch, tmp_path):
+    """The entry-points phase on the CPU: narrow models (features 4..16,
+    the factory patched where the train and test commands build them),
+    8-slice validation chunks, counted wrapper calls, its files under
+    tmp_path, no learning bound."""
+    from wsl4mis_torch.eval.val2d import VolumePredictor
+
+    narrow = functools.partial(net_factory, features=(4, 8, 8, 16, 16))
+    monkeypatch.setattr(VolumePredictor, "__init__", functools.partialmethod(
+        VolumePredictor.__init__, chunk=8))
+    monkeypatch.setattr(chip_smoke, "EVAL_N", 8)
+    monkeypatch.setattr("wsl4mis_torch.engine.methods.common.net_factory",
+                        narrow)
+    monkeypatch.setattr("wsl4mis_torch.eval.infer.net_factory", narrow)
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "LEARN_RISE", -1.0)
+    return _count_launches(monkeypatch)
+
+
+def test_entry_argv_builds_the_run_config():
+    """The phase's flags through the command's own parser over
+    train_fully_supervised_2D's defaults."""
+    from wsl4mis_torch import cli
+
+    method, defaults = cli.resolve_script("train_fully_supervised_2D")
+    argv = chip_smoke.entry_argv(24, 200, 100, "snap", 7) + [
+        "--device", "cuda", "--aug_mode", "host"]
+    cfg = cli.config_from_args(cli.build_parser(defaults).parse_args(argv),
+                               method)
+    assert (cfg.batch_size, cfg.max_iterations, cfg.val_every,
+            cfg.ckpt_every, cfg.seed) == (24, 200, 100, 200, 7)
+    assert (cfg.method, cfg.fold, cfg.sup_type, cfg.base_lr) == \
+        ("fully_supervised", "fold5", "label", 0.03)
+    assert cfg.patch_size == (256, 256) and cfg.snapshot_root == "snap"
+    assert (cfg.device, cfg.aug_mode) == ("cuda", "host")
+    assert chip_smoke.per_step_counts("unet", "fully_supervised",
+                                      host_aug=True)["augment"] == 0
+    for _, _, _, steps, bound in chip_smoke.LEARN_RUNS:
+        assert steps % 2 == 0 and 0 < bound < 1
+
+
+def test_entry_phase_runs_on_the_cpu(narrow_entry, monkeypatch):
+    """The whole phase at 256x256 on the CPU (h5py here: the train command
+    reads an H5 tree chip_smoke writes): launches as expected (the host
+    run's augment 0), the test command's Dice equal to the validation's,
+    its NIfTI files equal to the predictions."""
+    monkeypatch.setattr(chip_smoke, "N", 2)
+    data = synthetic_slices(24, (256, 256), seed=0)
+    scribbles = synthetic_slices(24, (256, 256), seed=0, sup_type="scribble")
+    val = synthetic_volumes(2, 3, 40, 48, seed=1)
+    runs = (("train_fully_supervised_2D", "unet", 2, 2, -1.0),
+            ("train_weakly_supervised_segmentation_pCE_ours_proposed",
+             "unet_cct", 2, 2, -1.0))
+    out = chip_smoke.entry_points(0, data, scribbles, val, "cpu", dev="cpu",
+                                  runs=runs, host_steps=2,
+                                  host_native=(21, 23))
+    assert out["h5py"]
+    for rec in out["runs"]:
+        assert rec["launches"] == rec["expected"]
+        assert len(rec["val_dice"]) == 2
+        assert rec["inference"]["dice_err"] == 0.0
+        assert all(rec["inference"]["nifti_equal"])
+    host = out["host_aug"]
+    assert host["aug_mode"] == "host" and host["launches"]["augment"] == 0
+    assert host["launches"] == host["expected"]
+
+
+def test_entry_run_from_memory_on_the_cpu(narrow_entry, tmp_path):
+    """Without an H5 tree (a machine without h5py): the command's argv
+    through its parser, the bundle from in-memory slices, host batches
+    from their native sizes; then the test command's check."""
+    val = synthetic_volumes(2, 3, 40, 48, seed=1)
+    native = zoomed_with_native(synthetic_slices(4, (21, 23), seed=2),
+                                (256, 256))
+    argv = chip_smoke.entry_argv(2, 2, 1, str(tmp_path / "snap"), 0) + [
+        "--device", "cpu", "--aug_mode", "host"]
+    trainer, rec, evals = chip_smoke.run_cli(
+        "fully_supervised", "unet", argv, native, val, dev="cpu")
+    assert rec["launches"]["augment"] == 0 and len(evals) == 2
+    assert rec["launches"] == rec["expected"]
+    assert max(rec["val_dice"]) > 0  # so a best checkpoint was saved
+    inf = chip_smoke.check_inference(trainer, evals, "unet", dev="cpu")
+    assert inf["dice_err"] == 0.0
+
+
+def test_main_returns_2_and_no_result_line_without_a_card(capsys):
+    """With the entry-points phase in: no card, exit code 2, nothing on
+    standard output (so no result line)."""
+    assert not torch.cuda.is_available()
+    assert chip_smoke.main([]) == 2
+    assert capsys.readouterr().out == ""

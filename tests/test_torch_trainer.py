@@ -153,7 +153,8 @@ def test_unported_names_name_their_roadmap_item(build, name):
 
 def test_port_imports_no_jax():
     """Importing every module of the package (walked, so that new modules
-    are covered) and chip_smoke pulls in none of them."""
+    are covered) and chip_smoke pulls in none of them, nor h5py or msgpack
+    (imported where a file is read)."""
     code = (
         "import importlib, pkgutil, sys, wsl4mis_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages("
@@ -162,7 +163,8 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'wsl4mis_tpu', 'h5py'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'wsl4mis_tpu', 'h5py', "
+        "'msgpack'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,0 +1,348 @@
+"""Command line of the port (port of ``wsl4mis_tpu/cli.py`` and of the JAX
+package's train and test scripts under ``scripts/``).
+
+    python -m wsl4mis_torch.cli train <script-or-method> [flags]
+    python -m wsl4mis_torch.cli train_scribblevc {ACDC,MSCMR} [flags]
+    python -m wsl4mis_torch.cli test [flags]
+
+``train`` takes a reference train script's name (``train_fully_supervised_2D``,
+``.py`` optional) or a method name, with that script's defaults
+(METHOD_DEFAULTS; a method with no script of its own takes the parser's)
+and the reference flag names. ``train_scribblevc`` is
+train_ACDC_scribblevc.py / train_MSCMR_scribblevc.py (epochs, AdamW's
+lr), ``test`` test_2D_fully.py (``--model unet_cct``: test_2D_fully_sps.py).
+Every command runs on the card unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import logging
+import os
+import sys
+
+import torch
+
+from .engine.config import TrainConfig
+from .engine.methods import available_methods, get_method
+from .engine.trainer import Trainer
+from .eval.infer import InferenceConfig, run_inference
+from .utils.checkpoint import load_model_checkpoint
+
+# The DEFAULTS and METHOD of each scripts/train_*.py of the JAX package,
+# keyed by the script's name.
+METHOD_DEFAULTS = {
+    "train_fully_supervised_2D": ("fully_supervised", {
+        "exp": "ACDC", "fold": "fold5", "sup_type": "label",
+        "batch_size": 16, "base_lr": 0.03, "max_iterations": 30000,
+        "seed": 2022}),
+    "train_weakly_supervised_pCE_2D": ("pce", {
+        "exp": "ACDC_pCE", "fold": "fold1", "sup_type": "scribble",
+        "batch_size": 24, "base_lr": 0.03, "max_iterations": 30000,
+        "seed": 2022}),
+    "train_weakly_supervised_segmentation_pCE_ours_proposed": ("dmpls", {
+        "exp": "ACDC/pCE_SPS", "fold": "fold1", "sup_type": "scribble",
+        "model": "unet_cct", "batch_size": 6, "base_lr": 0.01,
+        "max_iterations": 60000, "seed": 2022}),
+    "train_weakly_supervised_pCE_TV_2D": ("pce_tv", {
+        "exp": "ACDC_pCE_TV", "fold": "fold1", "sup_type": "scribble",
+        "batch_size": 24, "base_lr": 0.01, "max_iterations": 30000,
+        "seed": 1337}),
+    "train_weakly_supervised_pCE_Entropy_Mini_2D": ("pce_entropy_mini", {
+        "exp": "ACDC_pCE_Entropy_Mini", "fold": "fold1",
+        "sup_type": "scribble", "batch_size": 24, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022}),
+    "train_weakly_supervised_pCE_GatedCRFLoss_2D": ("pce_gatedcrf", {
+        "exp": "ACDC_pCE_GatedCRFLoss", "fold": "fold1",
+        "sup_type": "scribble", "batch_size": 6, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022}),
+    "train_weakly_supervised_pCE_MumfordShah_Loss_2D": ("pce_mumford_shah", {
+        "exp": "ACDC_pCE_MumfordShah_Loss", "fold": "fold1",
+        "sup_type": "scribble", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 60000, "seed": 2022}),
+    "train_weakly_supervised_pCE_Intensity_Variance_2D": (
+        "pce_intensity_variance", {
+            "exp": "ACDC_pCE_Inter_Intra_Class", "fold": "fold1",
+            "sup_type": "scribble", "batch_size": 24, "base_lr": 0.01,
+            "max_iterations": 30000, "seed": 2022}),
+    "train_weakly_supervised_pCE_Inter&Intra_Class_2D": (
+        "pce_intensity_variance", {
+            "exp": "ACDC_pCE_Inter_Intra_Class", "fold": "fold1",
+            "sup_type": "scribble", "batch_size": 24, "base_lr": 0.01,
+            "max_iterations": 30000, "seed": 2022}),
+    "train_weakly_supervised_pCE_random_walker_2D": ("pce_random_walker", {
+        "exp": "ACDC/pCE_Random_Walker", "fold": "fold1",
+        "sup_type": "random_walker", "batch_size": 24, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022}),
+    "train_mean_teacher_2D": ("mean_teacher", {
+        "exp": "ACDC_Semi/Mean_Teacher", "fold": "fold2",
+        "sup_type": "label", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022, "labeled_bs": 6}),
+    "train_uncertainty_aware_mean_teacher_2D": ("uamt", {
+        "exp": "ACDC_Semi/Uncertainty_Aware_Mean_Teacher", "fold": "fold2",
+        "sup_type": "label", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022, "labeled_bs": 6}),
+    "train_entropy_minimization_2D": ("entropy_minimization", {
+        "exp": "ACDC_Semi/Entropy_Minimization", "fold": "fold1",
+        "sup_type": "label", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022, "labeled_bs": 6}),
+    "train_partially_fully_supervised": ("partially_supervised", {
+        "exp": "ACDC_Semi/Partially_Supervised", "fold": "fold1",
+        "sup_type": "label", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 30000, "seed": 2022, "labeled_bs": 6}),
+    "train_deep_adversarial_network_2D": ("deep_adversarial", {
+        "exp": "ACDC_Semi/DAN", "fold": "fold2", "sup_type": "label",
+        "batch_size": 12, "base_lr": 0.01, "max_iterations": 30000,
+        "seed": 2022, "labeled_bs": 6}),
+    "train_weakly_supervised_ustm_2D": ("ustm", {
+        "exp": "ACDC/pCE_Seg_USTM", "fold": "fold1", "sup_type": "scribble",
+        "batch_size": 12, "base_lr": 0.01, "max_iterations": 60000,
+        "seed": 2022}),
+    "train_s2l": ("s2l", {
+        "exp": "ACDC/pCE_scribble2label", "fold": "fold1",
+        "sup_type": "scribble", "batch_size": 12, "base_lr": 0.01,
+        "max_iterations": 60000, "seed": 1337, "labeled_bs": 6}),
+}
+
+
+def build_parser(defaults: dict) -> argparse.ArgumentParser:
+    """The train scripts' flags (wsl4mis_tpu/cli.py:20-74, the reference's
+    names) with `defaults`, less the TPU runtime's, plus --device."""
+    p = argparse.ArgumentParser()
+    add = p.add_argument
+    add("--root_path", type=str, default=defaults.get("root_path"),
+        help="ACDC data root (default: auto-discover)")
+    add("--exp", type=str, default=defaults.get("exp", "ACDC"))
+    add("--fold", type=str, default=defaults.get("fold", "fold1"))
+    add("--sup_type", type=str, default=defaults.get("sup_type", "label"))
+    add("--model", type=str, default=defaults.get("model", "unet"))
+    add("--num_classes", type=int, default=4)
+    add("--max_iterations", type=int,
+        default=defaults.get("max_iterations", 30000))
+    add("--batch_size", type=int, default=defaults.get("batch_size", 16))
+    add("--deterministic", type=int, default=1,
+        help="1: deterministic cuDNN, no autotuning; 0: autotuned")
+    add("--base_lr", type=float, default=defaults.get("base_lr", 0.03))
+    add("--patch_size", type=str, default="[256, 256]",
+        help="patch size, e.g. [256,256]")
+    add("--seed", type=int, default=defaults.get("seed", 2022))
+    # semi-supervised / method-specific flags (harmless elsewhere)
+    add("--labeled_bs", type=int, default=defaults.get("labeled_bs", 6))
+    add("--ema_decay", type=float, default=0.99)
+    add("--consistency", type=float, default=0.1)
+    add("--consistency_rampup", type=float, default=200.0)
+    add("--thr_iter", type=int, default=6000)
+    add("--thr_conf", type=float, default=0.8)
+    add("--period_iter", type=int, default=100)
+    add("--alpha", type=float, default=0.2)
+    # run knobs
+    add("--val_every", type=int, default=200)
+    add("--ckpt_every", type=int, default=3000)
+    add("--log_every", type=int, default=1)
+    add("--compute_dtype", type=str, default="bfloat16",
+        choices=["bfloat16", "float32"])
+    add("--snapshot_root", type=str, default="model")
+    add("--resume", action="store_true")
+    add("--data_limit", type=int, default=None)
+    add("--aug_mode", type=str, default="device", choices=["device", "host"],
+        help="device: in-step augmentation; host: exact reference "
+             "augment-then-zoom semantics on the host")
+    add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return p
+
+
+def config_from_args(args, method: str) -> TrainConfig:
+    root = args.root_path
+    if root is not None and not os.path.isdir(root):
+        logging.warning("root_path %s not found; auto-discovering", root)
+        root = None
+    return TrainConfig(
+        root_path=root,
+        exp=args.exp,
+        fold=args.fold,
+        sup_type=args.sup_type,
+        model=args.model,
+        num_classes=args.num_classes,
+        max_iterations=args.max_iterations,
+        batch_size=args.batch_size,
+        base_lr=args.base_lr,
+        patch_size=tuple(ast.literal_eval(args.patch_size)),
+        seed=args.seed,
+        labeled_bs=args.labeled_bs,
+        ema_decay=args.ema_decay,
+        consistency=args.consistency,
+        consistency_rampup=args.consistency_rampup,
+        thr_iter=args.thr_iter,
+        thr_conf=args.thr_conf,
+        period_iter=args.period_iter,
+        alpha=args.alpha,
+        method=method,
+        val_every=args.val_every,
+        ckpt_every=args.ckpt_every,
+        log_every=args.log_every,
+        compute_dtype=args.compute_dtype,
+        snapshot_root=args.snapshot_root,
+        resume=args.resume,
+        data_limit=args.data_limit,
+        aug_mode=args.aug_mode,
+        device=args.device,
+    )
+
+
+def set_deterministic(deterministic: int) -> None:
+    """cuDNN as the reference scripts set it from --deterministic."""
+    torch.backends.cudnn.benchmark = not deterministic
+    torch.backends.cudnn.deterministic = bool(deterministic)
+
+
+def make_trainer(method: str, defaults: dict, argv=None) -> Trainer:
+    """The Trainer train_main runs: argv parsed over `defaults`, the
+    method's bundle built from the data on disk."""
+    args = build_parser(defaults).parse_args(argv)
+    cfg = config_from_args(args, method)
+    set_deterministic(args.deterministic)
+    trainer = Trainer(cfg, get_method(method).build(cfg))
+    logging.info(str(args))
+    return trainer
+
+
+def train_main(method: str, defaults: dict, argv=None) -> str:
+    return make_trainer(method, defaults, argv).train()
+
+
+def resolve_script(name: str) -> tuple[str, dict]:
+    """(method, defaults) of a train script's name (a path or ``.py``
+    allowed) or of a method name (its script's defaults; none for a
+    method with no script of its own, scribblevc)."""
+    stem = os.path.basename(name)
+    stem = stem[:-3] if stem.endswith(".py") else stem
+    if stem in METHOD_DEFAULTS:
+        return METHOD_DEFAULTS[stem]
+    if stem in available_methods():
+        for method, defaults in METHOD_DEFAULTS.values():
+            if method == stem:
+                return method, defaults
+        return stem, {}
+    raise SystemExit(f"unknown train script or method {name!r}; scripts: "
+                     f"{sorted(METHOD_DEFAULTS)}; methods: "
+                     f"{available_methods()}")
+
+
+def scribblevc_parser(dataset: str) -> argparse.ArgumentParser:
+    """The flags of scripts/train_{ACDC,MSCMR}_scribblevc.py, less the TPU
+    runtime's, plus --device. MSCMR trains on MSCMRfold and has no fold,
+    warm start, light validation, resume or checkpoint cadence flag."""
+    acdc = dataset == "ACDC"
+    p = argparse.ArgumentParser(prog=f"train_scribblevc {dataset}")
+    add = p.add_argument
+    add("--root_path", type=str, default=None)
+    add("--exp", type=str, default=f"{dataset}_ScribbleVC")
+    if acdc:
+        add("--fold", type=str, default="MAAGfold")
+    add("--sup_type", type=str, default="scribble")
+    add("--num_classes", type=int, default=4)
+    add("--batch_size", type=int, default=6)
+    add("--max_epoches", type=int, default=200)
+    add("--val_every_epoches", type=int, default=1)
+    add("--lr", type=float, default=5e-4)
+    add("--seed", type=int, default=2022)
+    add("--patch_size", type=str, default="[256, 256]")
+    add("--compute_dtype", type=str, default="bfloat16")
+    add("--snapshot_root", type=str, default="model")
+    add("--data_limit", type=int, default=None)
+    if acdc:
+        add("--pretrain_weights", type=str, default="",
+            help="checkpoint to warm-start from, the port's or the JAX "
+                 "package's (reference train_ACDC_scribblevc.py:154-156)")
+        add("--light_val", type=int, default=0,
+            help="1: skip the train-rule validation pass")
+        add("--resume", type=int, default=0,
+            help="1: resume from latest_full.ckpt if present")
+        add("--ckpt_epoches", type=int, default=100,
+            help="full-state checkpoint cadence in epochs")
+    add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return p
+
+
+def scribblevc_main(argv, dataset: str) -> str:
+    """train_{ACDC,MSCMR}_scribblevc.py: the epoch counts become steps once
+    the bundle knows its steps per epoch (train_ACDC_scribblevc.py:80-89)."""
+    args = scribblevc_parser(dataset).parse_args(argv)
+    acdc = dataset == "ACDC"
+    cfg = TrainConfig(
+        root_path=args.root_path, exp=args.exp,
+        fold=args.fold if acdc else "MSCMRfold", sup_type=args.sup_type,
+        model="scribblevc", num_classes=args.num_classes,
+        batch_size=args.batch_size, base_lr=args.lr,
+        patch_size=tuple(ast.literal_eval(args.patch_size)), seed=args.seed,
+        method="scribblevc", compute_dtype=args.compute_dtype,
+        snapshot_root=args.snapshot_root, data_limit=args.data_limit,
+        device=args.device, max_iterations=1)
+    bundle = get_method("scribblevc").build(cfg)
+    if acdc and args.pretrain_weights:
+        load_model_checkpoint(args.pretrain_weights, bundle.model)
+        print("Load pretrain weight from", args.pretrain_weights)
+    spe = bundle.steps_per_epoch
+    cfg = cfg.replace(
+        max_iterations=args.max_epoches * spe,
+        val_every=args.val_every_epoches * spe,
+        ckpt_every=(args.ckpt_epoches if acdc else 100) * spe,
+        light_val=acdc and bool(args.light_val),
+        resume=acdc and bool(args.resume))
+    return Trainer(cfg, bundle).train()
+
+
+def test_parser() -> argparse.ArgumentParser:
+    """The flags of scripts/test_2D_fully.py, plus --device."""
+    p = argparse.ArgumentParser(prog="test")
+    add = p.add_argument
+    add("--root_path", type=str, default=None)
+    add("--exp", type=str, default="ACDC/WeaklySeg_pCE_MumfordShah_Loss")
+    add("--model", type=str, default="unet")
+    add("--fold", type=str, default="all",
+        help="'all' = 5-fold sweep, or a single foldK")
+    add("--num_classes", type=int, default=4)
+    add("--sup_type", type=str, default="scribble")
+    add("--snapshot_root", type=str, default="model")
+    add("--checkpoint", type=str, default="iter_60000.pth")
+    add("--raw_data_path", type=str, default=None)
+    add("--no_save", action="store_true")
+    add("--compute_dtype", type=str, default="bfloat16")
+    add("--data_limit", type=int, default=None)
+    add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return p
+
+
+def inference_config(args) -> InferenceConfig:
+    return InferenceConfig(
+        root_path=args.root_path, exp=args.exp, model=args.model,
+        sup_type=args.sup_type, num_classes=args.num_classes,
+        snapshot_root=args.snapshot_root, checkpoint=args.checkpoint,
+        raw_data_path=args.raw_data_path, save_predictions=not args.no_save,
+        compute_dtype=args.compute_dtype,
+        folds=InferenceConfig.folds if args.fold == "all" else (args.fold,),
+        data_limit=args.data_limit, device=args.device)
+
+
+def test_main(argv=None) -> float:
+    """The fold sweep of test_2D_fully.py; the mean Dice over the folds."""
+    return run_inference(inference_config(test_parser().parse_args(argv)))
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    command = argv[0] if argv else None
+    if command == "train" and len(argv) > 1:
+        print(train_main(*resolve_script(argv[1]), argv[2:]))
+    elif command == "train_scribblevc" and argv[1:2] in (["ACDC"],
+                                                          ["MSCMR"]):
+        print(scribblevc_main(argv[2:], argv[1]))
+    elif command == "test":
+        test_main(argv[1:])
+    else:
+        raise SystemExit(__doc__)
+
+
+if __name__ == "__main__":
+    main()

@@ -163,6 +163,9 @@ class AcdcSliceDataset:
     (scribbles mark unannotated pixels 4); dense_labels the ``label`` key.
     ``labeled_type`` "labeled" / "unlabeled" keeps the slices of one side
     of ``labeled_patient_ids``; None keeps every train patient's.
+    ``keep_native`` also keeps each slice's image and supervision at their
+    native size (``native_images`` / ``native_labels``, lists), which host
+    augmentation transforms before it zooms.
     """
 
     base_dir: str | None = None
@@ -170,6 +173,7 @@ class AcdcSliceDataset:
     sup_type: str = "label"
     labeled_type: str | None = None
     patch_size: tuple[int, int] = (256, 256)
+    keep_native: bool = False
     limit: int | None = None
     slices_dirname: str = "ACDC_training_slices"
     rw_mode: str = "acdc"  # the on-the-fly random-walker generator for a
@@ -181,6 +185,8 @@ class AcdcSliceDataset:
     dense_labels: np.ndarray = field(init=False, repr=False)
     case_ids: list[str] = field(init=False, repr=False)
     slice_names: list[str] = field(init=False, repr=False)
+    native_images: list[np.ndarray] | None = field(init=False, repr=False)
+    native_labels: list[np.ndarray] | None = field(init=False, repr=False)
 
     def __post_init__(self):
         import h5py
@@ -201,6 +207,7 @@ class AcdcSliceDataset:
         if self.limit is not None:
             names = names[: self.limit]
         imgs, labs, dense = [], [], []
+        native_i, native_l = [], []
         for name in names:
             with h5py.File(os.path.join(slices_dir, name), "r") as f:
                 img = f["image"][:].astype(np.float32)
@@ -215,11 +222,15 @@ class AcdcSliceDataset:
             imgs.append(_nearest_zoom2d(img, self.patch_size))
             labs.append(_nearest_zoom2d(lab, self.patch_size))
             dense.append(_nearest_zoom2d(den, self.patch_size))
+            native_i.append(img)
+            native_l.append(lab)
         self.images = np.stack(imgs).astype(np.float32)
         self.labels = np.stack(labs).astype(np.int32)
         self.dense_labels = np.stack(dense).astype(np.int32)
         self.case_ids = [n.split("_")[0] for n in names]
         self.slice_names = names
+        self.native_images = native_i if self.keep_native else None
+        self.native_labels = native_l if self.keep_native else None
 
     def _random_walker(self, image, scribble):
         """The pseudo label of one slice made from its scribble

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .acdc import _nearest_zoom2d
+
 _INTENSITY = np.array([0.1, 0.5, 0.7, 0.9], np.float32)
 
 
@@ -20,11 +22,15 @@ _INTENSITY = np.array([0.1, 0.5, 0.7, 0.9], np.float32)
 class ArraySliceDataset:
     """In-memory slices: images (N,H,W) float32, labels (N,H,W) int32 (the
     supervision), dense_labels (N,H,W) int32 where known (ScribbleVC's
-    class-presence table reads them)."""
+    class-presence table reads them), and where host augmentation needs
+    them the slices at their native size (lists, as AcdcSliceDataset's
+    keep_native holds them)."""
 
     images: np.ndarray
     labels: np.ndarray
     dense_labels: np.ndarray | None = None
+    native_images: list | None = None
+    native_labels: list | None = None
 
     def __len__(self) -> int:
         return self.images.shape[0]
@@ -71,6 +77,19 @@ def synthetic_slices(n: int, patch_size=(256, 256), seed: int = 0,
         dense.append(lab)
     return ArraySliceDataset(np.concatenate(images), np.concatenate(labels),
                              np.concatenate(dense))
+
+
+def zoomed_with_native(native: ArraySliceDataset,
+                       patch_size=(256, 256)) -> ArraySliceDataset:
+    """`native`'s slices zoomed (order 0) to patch_size, as the H5 reader
+    zooms them, with the native ones kept for host augmentation."""
+    def zoom(stack):
+        return np.stack([_nearest_zoom2d(a, patch_size) for a in stack])
+
+    return ArraySliceDataset(zoom(native.images), zoom(native.labels),
+                             zoom(native.dense_labels),
+                             native_images=list(native.images),
+                             native_labels=list(native.labels))
 
 
 def synthetic_volumes(n: int, depth: int, h: int, w: int,

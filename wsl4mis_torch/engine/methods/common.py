@@ -17,6 +17,7 @@ from ...data import (
     batch_iterator,
     paired_iterator,
 )
+from ...data.augment import HostRandomGenerator
 from ...models import net_factory
 from ...ops import losses
 from ...utils.device import resolve_device
@@ -76,18 +77,27 @@ def make_model_and_state(cfg: TrainConfig, *, model_name=None, extra=None):
 
 
 def standard_data(cfg: TrainConfig):
-    """ACDC train slices, the fold's val volumes, and an index-batch stream
-    over the slices (the slices themselves are staged on the device)."""
-    if cfg.aug_mode == "host":
-        raise NotImplementedError(
-            "aug_mode='host' (reference host augmentation, data/augment.py) "
-            "is not ported yet: ROADMAP.md Queue 1 item 8")
+    """ACDC train slices (at their native sizes too with aug_mode "host"),
+    the fold's val volumes, the batch stream (train_batches) and the steps
+    per epoch."""
     train = AcdcSliceDataset(base_dir=cfg.root_path, fold=cfg.fold,
                              sup_type=cfg.sup_type,
-                             patch_size=cfg.patch_size, limit=cfg.data_limit)
+                             patch_size=cfg.patch_size,
+                             keep_native=cfg.aug_mode == "host",
+                             limit=cfg.data_limit)
     val = AcdcVolumeDataset(base_dir=cfg.root_path, fold=cfg.fold,
                             limit=(4 if cfg.data_limit else None))
-    return train, val, index_batches(cfg, train), len(train) // cfg.batch_size
+    return train, val, train_batches(cfg, train), len(train) // cfg.batch_size
+
+
+def train_batches(cfg: TrainConfig, train) -> Iterator[dict]:
+    """The step's batches over `train`: {"index"} batches into the slices
+    staged on the device, or with aug_mode "host" {"image", "label"}
+    batches augmented on the host and copied to the device."""
+    if cfg.aug_mode == "host":
+        return device_batches(_host_augmented_iterator(cfg, train),
+                              resolve_device(cfg.device))
+    return index_batches(cfg, train)
 
 
 def index_batches(cfg: TrainConfig, train) -> Iterator[dict]:
@@ -95,6 +105,35 @@ def index_batches(cfg: TrainConfig, train) -> Iterator[dict]:
     it = batch_iterator(train, cfg.batch_size, seed=cfg.seed,
                         include_index=True)
     return ({"index": b["index"].astype(np.int32)} for b in it)
+
+
+def _host_augmented_iterator(cfg: TrainConfig, train) -> Iterator[dict]:
+    """numpy {"image": (B,H,W) f32, "label": (B,H,W) int32} batches over
+    the index stream of the device path, each slice augmented at its
+    native size and then zoomed (HostRandomGenerator, seeded cfg.seed)."""
+    gen = HostRandomGenerator(cfg.patch_size, seed=cfg.seed)
+    for b in batch_iterator(train, cfg.batch_size, seed=cfg.seed,
+                            include_index=True):
+        out = [gen({"image": train.native_images[i],
+                    "label": train.native_labels[i]}) for i in b["index"]]
+        yield {"image": np.stack([o["image"] for o in out]),
+               "label": np.stack([o["label"] for o in out])}
+
+
+def device_batches(batches: Iterator[dict], device) -> Iterator[dict]:
+    """Each numpy batch as tensors on `device`; on the card an asynchronous
+    copy from pinned memory. The Trainer runs its stream in the prefetch
+    thread, so the step neither waits for the copy nor spends host time
+    on it, and the default stream, which both threads use, orders the copy
+    before the step that reads the batch."""
+    for batch in batches:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(v)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[k] = t
+        yield out
 
 
 def resolve_labeled_bs(cfg: TrainConfig) -> int:
@@ -147,7 +186,8 @@ def prep_batch(generator, batch, staged=None, augment: bool = True):
     """Gather (from the staged dataset) + augmentation + NHWC expansion.
 
     batch is {"index"} over `staged`, or {"image", "label"} tensors already
-    on the device (augment=False when they arrive augmented). Returns
+    on the device (augment=False when they arrive augmented:
+    train_batches with aug_mode "host"). Returns
     (x (B,H,W,1) f32, labels (B,H,W) int32)."""
     if staged is not None and "index" in batch:
         idx = torch.as_tensor(batch["index"]).to(staged["images"].device,

@@ -23,12 +23,12 @@ from ..config import TrainConfig
 from ..state import ema_copy, ema_update
 from .common import (
     MethodBundle,
-    index_batches,
     make_model_and_state,
     prep_batch,
     sigmoid_rampup,
     stage_dataset,
     standard_data,
+    train_batches,
     train_vis,
 )
 from .mean_teacher import (
@@ -80,12 +80,13 @@ def make_step(cfg: TrainConfig):
 
 
 def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
-    """The method on a given slice dataset, staged on the device."""
+    """The method on a given slice dataset, staged on the device (with
+    aug_mode "host" its batches come augmented from the host)."""
     model, state = make_model_and_state(cfg)
     state.extra = {"ema_params": ema_copy(model)}
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
                         aux=stage_dataset(cfg, train),
-                        data_iter=index_batches(cfg, train), val_volumes=val,
+                        data_iter=train_batches(cfg, train), val_volumes=val,
                         steps_per_epoch=len(train) // cfg.batch_size)
 
 

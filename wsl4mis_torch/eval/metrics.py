@@ -1,11 +1,13 @@
 """Binary segmentation metrics, medpy-parity on scipy (the port's copy of
-``wsl4mis_tpu/eval/metrics.py``: Dice and HD95, and ScribbleVC's
-NaN-aware per-case metric).
+``wsl4mis_tpu/eval/metrics.py``: Dice, HD95 and ASD, the per-case
+metrics of validation and of the offline test at voxel spacing, and
+ScribbleVC's NaN-aware per-case metric).
 
 Surface voxels are mask ^ binary_erosion(mask) with a connectivity-1
 structuring element; distances are the EDT of the complement of the other
 surface sampled at the border voxels. A class with an empty prediction or
-ground truth scores (0, 0), as the reference validation does.
+ground truth scores (0, 0), as the reference validation does ((0, 0, 0)
+in the offline test).
 """
 
 from __future__ import annotations
@@ -66,6 +68,12 @@ def hd95(result, reference, voxelspacing=None) -> float:
     return float(np.percentile(np.hstack((d1, d2)), 95))
 
 
+def asd(result, reference, voxelspacing=None) -> float:
+    """Mean distance from the result's surface to the reference's (one
+    direction, as medpy's asd)."""
+    return float(surface_distances(result, reference, voxelspacing).mean())
+
+
 def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray):
     """(dice, hd95), (0, 0) when the prediction or the label is empty."""
     pred = pred > 0
@@ -90,3 +98,15 @@ def calculate_metric_percase_nan(pred: np.ndarray, gt: np.ndarray):
     if pred.sum() == 0:
         return dice, np.nan
     return dice, hd95(pred, gt)
+
+
+def calculate_metric_percase_spacing(pred, gt, spacing):
+    """(dice, hd95, asd) at voxel spacing (the offline test's metric,
+    test_2D_fully.py:74-80); (0, 0, 0) when the prediction or the label is
+    empty."""
+    pred = pred > 0
+    gt = gt > 0
+    if pred.sum() == 0 or gt.sum() == 0:
+        return 0.0, 0.0, 0.0
+    return (dice_coefficient(pred, gt), hd95(pred, gt, spacing),
+            asd(pred, gt, spacing))
