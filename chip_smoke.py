@@ -102,11 +102,30 @@ failure:
    of a native 212x232: its launches must hold no augment. Launch
    counters are zeroed before each run and each inference, and must show
    their expected counts.
+6. The rest of the model zoo (last: phase 5 leaves cuDNN deterministic,
+   which this phase resets): each 2D factory model (unet, unet_cct,
+   unet_cct_3h, unet_ds, unet_urds, pnet, efficient_unet) at its published
+   widths, 256x256, bf16, batch 24: eval forward and forward + backward
+   timed by the port's measure_fwd_bwd_time (peak memory too), the
+   multi-head UNets' K1-K3 and pool launches of one train-mode forward +
+   backward against their shape's counts, and the model's f32 eval
+   logits on the card against the CPU at batch 2 (ZOO_EVAL_TOL); each 3D
+   net (net_factory_3d, published filters, 2 classes) timed at
+   2x96x96x96, and its f32 logits and gradient against the CPU at 32^3;
+   the train command with --model pnet / efficient_unet (fully_supervised
+   batch 24, the second also with --encoder_weights from a file
+   convert_torch_weights wrote from a synthesized state_dict) and pce
+   --model pnet (batch 12): one augment launch a step, finite losses,
+   ms/step and peak GB; the test command with --model unet_ds /
+   unet_cct_3h on checkpoints carrying phase 5's trained UNet, and
+   test_scribblevc ACDC's scoring on phase 3's ScribbleVC checkpoint: the
+   per-class Dice equal to the validation's (difference 0.0).
 
-Output: detail lines, a per-conv table of the batch-24 step's conv
-launches (conv-table lines), the entry points' line (entry-points: steps,
-ms/step, Dice, seconds a part, the card), the per-kernel JSON line (its
-launches summed over phases 3 and 5), the nvidia-smi line, and last
+Output: detail lines, the entry points' line (entry-points: steps,
+ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
+model's ms and checks, the card), a per-conv table of the batch-24
+step's conv launches (conv-table lines), the per-kernel JSON line (its
+launches summed over phases 3, 5 and 6), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
 """
@@ -735,18 +754,28 @@ SEMI = ("mean_teacher", "uamt", "entropy_minimization",
 EMA = ("mean_teacher", "uamt", "ustm")  # with an EMA teacher
 
 
+# the UNet family (ConvBlocks and 3x3 heads on the conv kernels, the
+# encoder's pools on the pool kernels): its heads and decoders
+UNET_HEADS = {"unet": 1, "unet_cct": 2, "unet_cct_3h": 3, "unet_ds": 4,
+              "unet_urds": 4}
+UNET_DECODERS = {"unet_cct": 2, "unet_cct_3h": 3}
+
+
 def _unet_sizes(model_name):
-    """(decoders, ConvBlocks, 3x3 convs) of a UNet or UNet_CCT."""
-    decoders = 2 if model_name == "unet_cct" else 1
-    blocks = 10 + 8 * decoders
-    return decoders, blocks, blocks + decoders
+    """(3x3 heads, ConvBlock convs, 3x3 convs) of a UNet-family model: the
+    encoder's 10 ConvBlock convs, 8 a decoder, a head a decoder (UNet_DS /
+    URDS: one a scale)."""
+    heads = UNET_HEADS[model_name]
+    blocks = 10 + 8 * UNET_DECODERS.get(model_name, 1)
+    return heads, blocks, blocks + heads
 
 
 def eval_counts(model_name):
     """Launches of one eval-mode forward: every conv a fwd launch, the
-    encoder's four pools (ScribbleVC: none, its convolutions and pools are
-    cuDNN's and PyTorch's, as they are XLA's in the JAX package)."""
-    if model_name == "scribblevc":
+    encoder's four pools (ScribbleVC, PNet2D and EfficientNet-UNet: none,
+    their convolutions and pools are cuDNN's and PyTorch's, as they are
+    XLA's in the JAX package)."""
+    if model_name not in UNET_HEADS:
         return {}
     return {"conv3x3_fwd": _unet_sizes(model_name)[2], "maxpool_fwd": 4}
 
@@ -761,16 +790,22 @@ def per_step_counts(model_name, method=None, host_aug=False):
     batches arrive augmented), and one GatedCRF contraction for
     pce_gatedcrf (its backward is an elementwise scale, no launch).
     ScribbleVC's step: one augment and one GatedCRF contraction, no conv
-    or pool kernel."""
+    or pool kernel; a PNet2D or EfficientNet-UNet step: the augment
+    launch alone."""
     if model_name == "scribblevc":
         return {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
                 "augment": 1, "augment_s2l": 0, "maxpool_fwd": 0,
                 "maxpool_bwd": 0, "gated_crf": 1}
+    if model_name not in UNET_HEADS:
+        return {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
+                "augment": int(not host_aug), "augment_s2l": 0,
+                "maxpool_fwd": 0, "maxpool_bwd": 0,
+                "gated_crf": int(method == "pce_gatedcrf")}
     fwd, bwd, evl = STEP_PASSES.get(method, (1, 1, 0))
-    decoders, blocks, convs = _unet_sizes(model_name)
+    heads, blocks, convs = _unet_sizes(model_name)
     ev = eval_counts(model_name)
     return {"conv3x3_fwd_stats": blocks * fwd,
-            "conv3x3_fwd": decoders * fwd + (convs - 1) * bwd
+            "conv3x3_fwd": heads * fwd + (convs - 1) * bwd
             + ev["conv3x3_fwd"] * evl,
             "conv3x3_wgrad": convs * bwd,
             "augment": int(method != "s2l" and not host_aug),
@@ -869,8 +904,9 @@ def method_bundle(cfg, data, val):
                 lambda: paired_data(cfg, *data)[1])
     if cfg.method in ("ustm", "s2l", "scribblevc"):
         bundle = mod.make_bundle(cfg, data, val)
-    else:
-        model, state = make_model_and_state(cfg)
+    else:  # dmpls' build names its model; the others train cfg.model
+        model, state = make_model_and_state(
+            cfg, model_name="unet_cct" if cfg.method == "dmpls" else None)
         bundle = MethodBundle(
             model=model, state=state, step_fn=mod.make_step(cfg),
             data_iter=train_batches(cfg, data), val_volumes=val,
@@ -951,6 +987,15 @@ def run_method(method, model_name, batch, steps, validate, data, val,
     trainer = Trainer(cfg, bundle, use_tensorboard=False)
     validate_fn = trainer.validate
     trainer.validate = lambda it: vals.append(validate_fn(it)) or vals[-1]
+    if svc is not None:  # the select rule's per-class metrics (zoo phase)
+        evaluate = trainer._evaluate
+
+        def recording_eval(predictor, variables_fn):
+            out = evaluate(predictor, variables_fn)
+            if predictor is bundle.select_predictor:
+                svc["select_val"] = out[0].tolist()
+            return out
+        trainer._evaluate = recording_eval
 
     gc.collect()  # the earlier runs' bundles (cycles through their Trainer)
     torch.cuda.reset_peak_memory_stats()
@@ -1011,6 +1056,9 @@ def run_method(method, model_name, batch, steps, validate, data, val,
         rec["refresh"] = check_refresh(bundle, cfg, model_name)
     if svc is not None:
         rec.update(check_svc_run(bundle, cfg, steps, terms, svc))
+        rec["select_val"] = svc["select_val"]
+        rec["snapshot"] = {k: getattr(cfg, k) for k in (
+            "snapshot_root", "exp", "fold", "sup_type")}
 
     if time_steps:
         it = new_batches()
@@ -1611,7 +1659,8 @@ def check_inference(trainer, evals, model_name, dev="cuda"):
         read_back.append(bool(np.array_equal(img.array_zyx,
                                              pred.astype(np.float32)))
                          and img.spacing == spacing)
-    rec = {"checkpoint": os.path.basename(path), "metrics": avg.tolist(),
+    rec = {"checkpoint": os.path.basename(path), "path": path,
+           "metrics": avg.tolist(),
            "val_dice": best.tolist(),
            "dice_err": float(np.abs(avg[:, 0] - best).max()),
            "nifti_equal": read_back, "launches": counts,
@@ -1690,6 +1739,443 @@ def entry_points(seed, data, scribbles, val, card, dev="cuda", hw=HW,
                          "augment_launches": rec["launches"]["augment"],
                          "losses": rec["losses"]}}
     print("entry-points " + json.dumps(line), flush=True)
+    return out
+
+
+# ---- phase 6: the rest of the model zoo -------------------------------------
+
+ZOO_2D = ("unet", "unet_cct", "unet_cct_3h", "unet_ds", "unet_urds", "pnet",
+          "efficient_unet")
+ZOO_3D = ("unet_3D", "attention_unet", "vnet", "voxresnet")
+ZOO_ITERS = 10  # timed calls of measure_fwd_bwd_time (after 2 warm-up calls)
+ZOO_REF_N = 2  # the card-versus-CPU f32 check's batch
+# f32 card (TF32 off) against the CPU, relative to the largest magnitude:
+# eval logits (each output of a 2D model, a 3D net's) and, for the 3D
+# nets, the parameter gradient of sum(out^2) in norm
+ZOO_EVAL_TOL = 1e-4
+ZOO_GRAD_TOL = 1e-3
+ZOO_3D_SHAPE = (2, 96, 96, 96, 1)
+ZOO_3D_REF = (1, 32, 32, 32, 1)
+ZOO_STEPS = 6
+ZOO_TIMED = 5  # steady-state steps of each zoo train run, timed and traced
+# (train script, --model, batch, --encoder_weights): fully_supervised and
+# pce on the models no earlier phase trains
+ZOO_RUNS = (
+    ("train_fully_supervised_2D", "pnet", N, False),
+    ("train_fully_supervised_2D", "efficient_unet", N, False),
+    ("train_fully_supervised_2D", "efficient_unet", N, True),
+    ("train_weakly_supervised_pCE_2D", "pnet", MS_N, False),
+)
+
+
+def fwd_bwd_counts(model_name):
+    """Launches of one train-mode forward and backward of a UNet-family
+    model (a training step's, without the augment)."""
+    return dict(per_step_counts(model_name), augment=0)
+
+
+def _generator(seed):
+    import torch
+
+    return torch.Generator().manual_seed(seed)
+
+
+def zoo_models(seed, dev="cuda", hw=HW, batch=N, widths=None):
+    """Each 2D factory model at its published widths (or `widths`' kwargs):
+    eval forward and forward + backward timed by the port's
+    measure_fwd_bwd_time at (batch, hw, hw, 1) in bf16, with the peak
+    memory; the multi-head UNets' launches of one train-mode forward +
+    backward against fwd_bwd_counts; the eval logits of the model in f32
+    on the card against the same model on the CPU (ZOO_EVAL_TOL)."""
+    import copy
+
+    import torch
+
+    from wsl4mis_torch.engine.methods.common import split_rngs
+    from wsl4mis_torch.models import MODEL_NUM_OUTPUTS, net_factory
+    from wsl4mis_torch.utils.profiling import measure_fwd_bwd_time
+
+    widths = widths or {}
+    recs = []
+    for i, name in enumerate(ZOO_2D):
+        kw = widths.get(name, {})
+        model = net_factory(name, 4, dtype=torch.bfloat16,
+                            generator=_generator(seed + i), **kw).to(dev)
+        x = torch.randn((batch, hw, hw, 1), generator=_generator(seed),
+                        ).to(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        fwd_s, fwd_bwd_s = measure_fwd_bwd_time(model, x, n_warmup=2,
+                                                n_iters=ZOO_ITERS)
+        rec = {"model": name, "batch": batch, "hw": hw,
+               "outputs": MODEL_NUM_OUTPUTS[name],
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "fwd_ms": 1e3 * fwd_s, "fwd_bwd_ms": 1e3 * fwd_bwd_s}
+        if dev == "cuda":
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if UNET_HEADS.get(name, 1) > 1 and name != "unet_cct":
+            reset_counts()
+            out = model(x, train=True, rngs=split_rngs(seed, 0, dev))
+            sum((o.float() ** 2).mean() for o in out).backward()
+            sync(dev)
+            rec["launches"] = launch_counts()
+            rec["expected"] = fwd_bwd_counts(name)
+            expect(rec["launches"] == rec["expected"],
+                   f"zoo {name}: fwd+bwd launches {rec['launches']} != "
+                   f"{rec['expected']}")
+        del model
+        ref = net_factory(name, 4, dtype=torch.float32,
+                          generator=_generator(seed + i), **kw).eval()
+        card = copy.deepcopy(ref).to(dev)
+        xs = torch.randn((ZOO_REF_N, hw, hw, 1), generator=_generator(
+            seed + 1))
+        with torch.no_grad():
+            want = ref(xs, train=False)
+            got = card(xs.to(dev), train=False)
+        if not isinstance(want, tuple):
+            want, got = (want,), (got,)
+        rec["ref_err"] = max(rel_max(g.cpu(), w) for g, w in zip(got, want))
+        expect(len(got) == MODEL_NUM_OUTPUTS[name] and all(
+            g.shape == (ZOO_REF_N, hw, hw, 4) for g in got),
+            f"zoo {name}: outputs {[tuple(g.shape) for g in got]}")
+        expect(rec["ref_err"] <= ZOO_EVAL_TOL,
+               f"zoo {name}: card against CPU {rec['ref_err']}")
+        recs.append(rec)
+        del ref, card
+    return recs
+
+
+def zoo_3d(seed, dev="cuda", shape=ZOO_3D_SHAPE, ref_shape=ZOO_3D_REF,
+           widths=None):
+    """Each net_factory_3d model (1 channel, 2 classes, published
+    filters): forward and forward + backward timed at `shape` in bf16;
+    in f32 at `ref_shape`, its eval logits and the gradient of sum(out^2)
+    on the card against the CPU."""
+    import copy
+
+    import torch
+
+    from wsl4mis_torch.models import net_factory_3d
+    from wsl4mis_torch.utils.profiling import measure_fwd_bwd_time
+
+    widths = widths or {}
+    recs = []
+    for i, name in enumerate(ZOO_3D):
+        kw = widths.get(name, {})
+        model = net_factory_3d(name, 2, dtype=torch.bfloat16,
+                               generator=_generator(seed + i), **kw).to(dev)
+        x = torch.randn(shape, generator=_generator(seed)).to(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        fwd_s, fwd_bwd_s = measure_fwd_bwd_time(model, x, n_warmup=1,
+                                                n_iters=3)
+        rec = {"model": name, "shape": list(shape),
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "fwd_ms": 1e3 * fwd_s, "fwd_bwd_ms": 1e3 * fwd_bwd_s}
+        if dev == "cuda":
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        ref = net_factory_3d(name, 2, dtype=torch.float32,
+                             generator=_generator(seed + i), **kw).eval()
+        card = copy.deepcopy(ref).to(dev)
+        xs = torch.randn(ref_shape, generator=_generator(seed + 1))
+        outs, grads = [], []
+        for m, xx in ((ref, xs), (card, xs.to(dev))):
+            out = m(xx, train=False)
+            outs.append(out.detach().cpu())
+            grads.append(torch.cat([g.flatten().cpu() for g in
+                                    torch.autograd.grad(
+                                        (out ** 2).sum(), m.parameters())]))
+        rec["ref_err"] = rel_max(outs[1], outs[0])
+        rec["grad_err"] = rel_norm(grads[1], grads[0])
+        expect(outs[1].shape == ref_shape[:4] + (2,),
+               f"zoo {name}: output {tuple(outs[1].shape)}")
+        expect(rec["ref_err"] <= ZOO_EVAL_TOL
+               and rec["grad_err"] <= ZOO_GRAD_TOL,
+               f"zoo {name}: card against CPU {rec['ref_err']}, gradient "
+               f"{rec['grad_err']}")
+        recs.append(rec)
+        del ref, card
+    return recs
+
+
+def synth_efficientnet(model_name, seed):
+    """A synthesized efficientnet_pytorch state_dict of `model_name` (its
+    key names and shapes, N(0, 0.05) weights, unit running variances): no
+    ImageNet file exists offline."""
+    import numpy as np
+    import torch
+
+    from wsl4mis_torch.models.efficientunet import (
+        BASE_BLOCKS,
+        SCALING,
+        round_filters,
+        round_repeats,
+    )
+
+    rs = np.random.RandomState(seed)
+    width, depth, _ = SCALING[model_name]
+    sd = {}
+
+    def randn(*shape):
+        return torch.from_numpy((0.05 * rs.randn(*shape)).astype(np.float32))
+
+    def bn(prefix, ch):
+        sd[f"{prefix}.weight"] = 1.0 + randn(ch)
+        sd[f"{prefix}.bias"] = randn(ch)
+        sd[f"{prefix}.running_mean"] = randn(ch)
+        sd[f"{prefix}.running_var"] = torch.ones(ch)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    stem = round_filters(32, width)
+    sd["_conv_stem.weight"] = randn(stem, 3, 3, 3)
+    bn("_bn0", stem)
+    bi = 0
+    for e, k, _s, fin, fout, r in BASE_BLOCKS:
+        out_f = round_filters(fout, width)
+        for j in range(round_repeats(r, depth)):
+            pre = f"_blocks.{bi}"
+            cin = round_filters(fin, width) if j == 0 else out_f
+            ch = cin * e
+            if e != 1:
+                sd[f"{pre}._expand_conv.weight"] = randn(ch, cin, 1, 1)
+                bn(f"{pre}._bn0", ch)
+            sd[f"{pre}._depthwise_conv.weight"] = randn(ch, 1, k, k)
+            bn(f"{pre}._bn1", ch)
+            se = max(1, int(cin * 0.25))
+            sd[f"{pre}._se_reduce.weight"] = randn(se, ch, 1, 1)
+            sd[f"{pre}._se_reduce.bias"] = randn(se)
+            sd[f"{pre}._se_expand.weight"] = randn(ch, se, 1, 1)
+            sd[f"{pre}._se_expand.bias"] = randn(ch)
+            sd[f"{pre}._project_conv.weight"] = randn(out_f, ch, 1, 1)
+            bn(f"{pre}._bn2", out_f)
+            bi += 1
+    return sd
+
+
+def zoo_train(seed, data, scribbles, val, base, dev="cuda", hw=HW,
+              runs=ZOO_RUNS, steps=ZOO_STEPS, encoder="efficientnet-b3"):
+    """The train command on the zoo's single-output models (run_cli: the
+    launches, one augment a step and nothing else, finite losses, the
+    checkpoints), ms/step and peak GB, and on the card ZOO_TIMED more
+    steps timed and traced (time_step); --encoder_weights reads a file the
+    convert_torch_weights command wrote from a synthesized state_dict,
+    and the run's config must build its model from it."""
+    import numpy as np
+    import torch
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.engine.methods.common import (
+        make_model_and_state,
+        train_batches,
+    )
+    from wsl4mis_torch.utils.checkpoint import load_jax_checkpoint
+
+    os.makedirs(base, exist_ok=True)
+    pth = os.path.join(base, "efficientnet.pth")
+    torch.save(synth_efficientnet(encoder, seed), pth)
+    enc_file = os.path.join(base, "efficientnet_1ch.msgpack")
+    cli.main(["convert_torch_weights", "--torch_ckpt", pth, "--model_name",
+              encoder, "--out", enc_file])
+    stem = load_jax_checkpoint(enc_file)["encoder_params"]["Conv_0"][
+        "kernel"]
+    recs = []
+    for i, (script, model_name, batch, weights) in enumerate(runs):
+        argv = entry_argv(batch, steps, 10 ** 9,
+                          os.path.join(base, f"run{i}"), seed, hw) + [
+            "--device", dev, "--model", model_name]
+        if weights:
+            argv += ["--encoder_weights", enc_file]
+        method, defaults = cli.resolve_script(script)
+        train = data if method == "fully_supervised" else scribbles
+        if weights:  # the run's config builds its model from the file
+            cfg = cli.config_from_args(
+                cli.build_parser(defaults).parse_args(argv), method)
+            model, _ = make_model_and_state(cfg)
+            expect(np.array_equal(model.state_dict()[
+                "efficient_net_encoder.0.conv.0.kernel"].cpu().numpy(),
+                stem), "zoo: --encoder_weights: the stem is not the file's")
+            del model
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        trainer, rec, _ = run_cli(script, model_name, argv, train, val,
+                                  None, dev)
+        rec["model"] = model_name
+        rec["encoder_weights"] = weights
+        if dev == "cuda":
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        expect(rec["launches"]["augment"] == steps,
+               f"zoo {model_name}: {rec['launches']['augment']} augment "
+               f"launches in {steps} steps")
+        if dev == "cuda":
+            it = train_batches(trainer.cfg, train)
+            t = time_step(trainer.bundle.step_fn, trainer.bundle.state,
+                          trainer.bundle.aux, trainer.cfg,
+                          [next(it) for _ in range(ZOO_TIMED)], seed)
+            prof = t.pop("profile")
+            rec["timed"] = t | {k: prof[k] for k in (
+                "device_busy_ms_per_step", "device_busy_share",
+                "ms_per_step_by_class")}
+        recs.append(rec)
+        del trainer
+    return recs
+
+
+def _zoo_weights(name, unet_sd):
+    """A trained UNet's weights carried into a UNet_DS (its full-scale
+    head the UNet's head) or a UNet_CCT_3H (its main decoder the UNet's
+    decoder); the other heads and decoders keep their init."""
+    out = {}
+    for k, v in unet_sd.items():
+        if name == "unet_ds":
+            k = k.replace("decoder.head.", "decoder.heads.3.")
+        elif k.startswith("decoder."):
+            k = "main_" + k
+        out[k] = v
+    return out
+
+
+def zoo_inference(unet_path, val, base, dev="cuda", widths=None):
+    """The test command (--model unet_ds / unet_cct_3h) on a checkpoint
+    this phase saves: a model carrying the entry phase's trained UNet
+    (_zoo_weights), validated as a Trainer at the reference's 256x256
+    validates (evaluate_fold of the VolumePredictor; the test command
+    predicts at 256x256), saved as the Trainer saves; the command's
+    per-class Dice must equal that validation's (difference 0.0) and its
+    launches be one eval forward a chunk."""
+    import numpy as np
+    import torch
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.eval.infer import (
+        checkpoint_path,
+        load_model,
+        score_volumes,
+    )
+    from wsl4mis_torch.eval.val2d import VolumePredictor, evaluate_fold
+    from wsl4mis_torch.models import net_factory
+    from wsl4mis_torch.utils.checkpoint import save_model_checkpoint
+
+    widths = widths or {}
+    unet_sd = torch.load(unet_path, map_location="cpu",
+                         weights_only=True)["model"]
+    volumes = list(val)
+    recs = []
+    for name in ("unet_ds", "unet_cct_3h"):
+        model = net_factory(name, 4, dtype=torch.bfloat16,
+                            generator=_generator(0), **widths.get(name, {}))
+        own = model.state_dict()
+        own.update(_zoo_weights(name, unet_sd))
+        model.load_state_dict(own, strict=True)
+        model = model.to(dev)
+        val_metrics = evaluate_fold(VolumePredictor(model, (HW, HW),
+                                                    device=dev), volumes, 4)
+        snap = os.path.join(base, "test", f"ACDC_{name}_fold1", "label")
+        save_model_checkpoint(os.path.join(snap, f"{name}_best_model.pth"),
+                              _as_state(model))
+        icfg = cli.inference_config(cli.test_parser().parse_args([
+            "--exp", f"ACDC_{name}", "--model", name, "--fold", "fold1",
+            "--sup_type", "label", "--snapshot_root",
+            os.path.join(base, "test"), "--checkpoint",
+            f"{name}_best_model.pth", "--device", dev]))
+        path, _ = checkpoint_path(icfg, icfg.folds[0])
+        loaded = load_model(icfg, path)
+        reset_counts()
+        avg, _ = score_volumes(icfg, loaded, volumes)
+        sync(dev)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in volumes)
+        expected = {k: v * -(-depth // EVAL_N)
+                    for k, v in eval_counts(name).items()}
+        rec = {"model": name, "metrics": avg.tolist(),
+               "val_dice": val_metrics[:, 0].tolist(),
+               "dice_err": float(np.abs(avg[:, 0] - val_metrics[:, 0]).max()),
+               "launches": counts, "expected": expected}
+        expect(rec["dice_err"] == 0.0,
+               f"zoo test --model {name}: Dice {avg[:, 0]} != validation's "
+               f"{val_metrics[:, 0]}")
+        expect(np.isfinite(avg).all(), f"zoo test {name}: metrics {avg}")
+        expect(counts == expected,
+               f"zoo test {name}: launches {counts} != {expected}")
+        recs.append(rec)
+    return recs
+
+
+def _as_state(model):
+    """The model as the checkpoint writer reads a train state."""
+    import types
+
+    return types.SimpleNamespace(model=model, step=0, extra=None)
+
+
+def zoo_svc_test(svc_run, val, dev="cuda"):
+    """test_scribblevc ACDC's scoring (its parser's flags, load_scribblevc,
+    score_scribblevc) on the ScribbleVC run's last checkpoint, over the
+    volumes that run validated: per-class Dice equal to the select rule's
+    validation (difference 0.0); a phantom volume holds every class, so
+    the validation's NaN-aware Dice is the plain one."""
+    import numpy as np
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.eval.infer import load_scribblevc, score_scribblevc
+
+    snap = svc_run["snapshot"]
+    args = cli.scribblevc_test_parser("ACDC").parse_args([
+        "--snapshot_root", snap["snapshot_root"], "--exp", snap["exp"],
+        "--fold", snap["fold"], "--sup_type", snap["sup_type"],
+        "--checkpoint", f"iter_{svc_run['steps']}.pth", "--device", dev])
+    path, = cli.scribblevc_checkpoints(args)
+    model, memory = load_scribblevc(path, args.num_classes,
+                                    args.compute_dtype, args.device)
+    avg = score_scribblevc(cli.scribblevc_inference_config(args), model,
+                           memory, list(val))
+    want = np.asarray(svc_run["select_val"])[:, 0]
+    rec = {"checkpoint": os.path.basename(path), "metrics": avg.tolist(),
+           "val_dice": want.tolist(),
+           "dice_err": float(np.abs(avg[:, 0] - want).max())}
+    expect(rec["dice_err"] == 0.0,
+           f"test_scribblevc: Dice {avg[:, 0]} != select validation's "
+           f"{want}")
+    return rec
+
+
+def zoo_phase(seed, data, scribbles, val, card, unet_path, svc_run,
+              dev="cuda", hw=HW, batch=N, widths=None, shape3d=ZOO_3D_SHAPE,
+              ref3d=ZOO_3D_REF, runs=ZOO_RUNS, steps=ZOO_STEPS):
+    """Phase 6 (after the entry points: the train command sets cuDNN
+    deterministic, so the phase first puts cuDNN back to its defaults for
+    its timings): zoo_models, zoo_3d, zoo_train, zoo_inference and
+    zoo_svc_test; prints the zoo line."""
+    import torch
+
+    widths = widths or {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    base = os.path.join(ROOT, "build", "chip_smoke", "zoo")
+    out = {"card": card, "models": zoo_models(seed, dev, hw, batch, widths)}
+    out["nets3d"] = zoo_3d(seed, dev, shape3d, ref3d, widths)
+    out["train"] = zoo_train(seed, data, scribbles, val, base, dev, hw, runs,
+                             steps, encoder=widths.get("efficient_unet", {}).get(
+                                 "encoder_name", "efficientnet-b3"))
+    out["inference"] = zoo_inference(unet_path, val, base, dev, widths)
+    out["svc_test"] = zoo_svc_test(svc_run, val, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    keep = ("model", "batch", "fwd_ms", "fwd_bwd_ms", "peak_gb", "ref_err",
+            "grad_err", "launches", "expected")
+    line = {"card": card, "phase_s": out["phase_s"],
+            "models": [{k: r[k] for k in keep if k in r}
+                       for r in out["models"]],
+            "nets3d": [{k: r[k] for k in keep if k in r}
+                       for r in out["nets3d"]],
+            "train": [{k: r[k] for k in ("model", "method", "batch", "steps",
+                                         "encoder_weights", "ms_per_step",
+                                         "peak_gb", "losses", "timed")
+                       if k in r} for r in out["train"]],
+            "test_dice_err": {r["model"]: r["dice_err"]
+                              for r in out["inference"]},
+            "test_scribblevc_dice_err": out["svc_test"]["dice_err"]}
+    print("zoo " + json.dumps(line), flush=True)
     return out
 
 
@@ -2102,10 +2588,15 @@ def main(argv=None):
     # last: the train command sets cuDNN deterministic (--deterministic 1)
     entry = entry_points(args.seed, data, scribbles, val, card)
     phase_s["entry"] = time.perf_counter() - t0 - sum(phase_s.values())
+    svc_run = next(r for r in runs if r["method"] == "scribblevc")
+    zoo = zoo_phase(args.seed, data, scribbles, val, card,
+                    entry["runs"][0]["inference"]["path"], svc_run)
+    phase_s["zoo"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
-        r["inference"] for r in entry["runs"]]
+        r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
+        "inference"] + [r for r in zoo["models"] if "launches" in r]
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -2119,7 +2610,7 @@ def main(argv=None):
               "sass_mma": sass,
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
-              "runs": runs, "entry": entry,
+              "runs": runs, "entry": entry, "zoo": zoo,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

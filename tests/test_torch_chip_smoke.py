@@ -772,3 +772,125 @@ def test_main_returns_2_and_no_result_line_without_a_card(capsys):
     assert not torch.cuda.is_available()
     assert chip_smoke.main([]) == 2
     assert capsys.readouterr().out == ""
+
+
+# narrow widths of the zoo phase's models on the CPU
+ZOO_WIDTHS = {
+    **{name: {"features": (4, 8, 8, 16, 16)} for name in chip_smoke.UNET_HEADS},
+    "pnet": {"num_filters": 8},
+    "efficient_unet": {"encoder_name": "efficientnet-b0"},
+    "unet_3D": {"feature_scale": 16}, "attention_unet": {"feature_scale": 16},
+    "vnet": {"n_filters": 4}, "voxresnet": {"feature_chns": 8},
+    "scribblevc": {"base_channel": 8, "embed_dim": 32, "num_heads": 2},
+}
+
+
+def _narrow_factory(name, *args, **kwargs):
+    return net_factory(name, *args, **{**ZOO_WIDTHS.get(name, {}), **kwargs})
+
+
+@pytest.fixture
+def narrow_zoo(monkeypatch, tmp_path):
+    """The zoo phase on the CPU: the narrow widths above wherever the
+    commands build a model, 8-slice validation chunks, counted wrapper
+    calls, its files under tmp_path."""
+    from wsl4mis_torch.eval.val2d import VolumePredictor
+
+    monkeypatch.setattr(VolumePredictor, "__init__", functools.partialmethod(
+        VolumePredictor.__init__, chunk=8))
+    monkeypatch.setattr(chip_smoke, "EVAL_N", 8)
+    monkeypatch.setattr("wsl4mis_torch.engine.methods.common.net_factory",
+                        _narrow_factory)
+    monkeypatch.setattr("wsl4mis_torch.eval.infer.net_factory",
+                        _narrow_factory)
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    return _count_launches(monkeypatch)
+
+
+def test_zoo_phase_runs_on_the_cpu(narrow_zoo, tmp_path):
+    """The whole zoo phase at 64x64 (3D: 16^3), batch 2, narrow widths:
+    every 2D and 3D model timed and held against itself on the CPU, the
+    multi-head UNets' wrapper calls of a forward + backward equal to
+    fwd_bwd_counts, the train command on pnet / efficient_unet (one with
+    --encoder_weights) and pce on pnet with one augment a step, the test
+    command's and test_scribblevc's Dice equal to their validations'.
+    The checkpoints it reads stand in for phases 3 and 5's: a narrow UNet
+    and a narrow bf16 ScribbleVC (the test command's compute dtype) with
+    its select-rule validation."""
+    from wsl4mis_torch.engine.methods.scribblevc import mean_softmax_decision
+    from wsl4mis_torch.eval.val2d import VolumePredictor, evaluate_fold
+    from wsl4mis_torch.utils.checkpoint import save_model_checkpoint
+
+    data = synthetic_slices(8, (64, 64), seed=0)
+    scribbles = synthetic_slices(8, (64, 64), seed=0, sup_type="scribble")
+    val = synthetic_volumes(2, 3, 40, 48, seed=1)
+    unet_path = str(tmp_path / "unet.pth")
+    save_model_checkpoint(unet_path, chip_smoke._as_state(_narrow_factory(
+        "unet", 4, generator=torch.Generator().manual_seed(0))))
+    svc = _narrow_factory("scribblevc", 4, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+    memory = svc.init_memory((256, 256))
+    snap = {"snapshot_root": str(tmp_path / "svc"), "exp": "ACDC",
+            "fold": "fold1", "sup_type": "scribble"}
+    state = chip_smoke._as_state(svc)
+    state.extra = {"class_memory": memory}
+    save_model_checkpoint(str(tmp_path / "svc" / "ACDC_fold1" / "scribble"
+                              / "iter_3.pth"), state,
+                          eval_extra=("class_memory",))
+    select = VolumePredictor(svc, (256, 256), device="cpu",
+                             decision_fn=mean_softmax_decision,
+                             forward_kwargs={"use_class_rep": False})
+    svc_run = {"steps": 3, "snapshot": snap, "select_val": evaluate_fold(
+        select, val, 4, nan_aware=True, variables={"memory": memory})}
+    runs = tuple((s, m, 2, w) for s, m, _, w in chip_smoke.ZOO_RUNS)
+    out = chip_smoke.zoo_phase(0, data, scribbles, val, "cpu", unet_path,
+                               svc_run, dev="cpu", hw=64, batch=2,
+                               widths=ZOO_WIDTHS, shape3d=(1, 16, 16, 16, 1),
+                               ref3d=(1, 16, 16, 16, 1), runs=runs, steps=2)
+    assert [r["model"] for r in out["models"]] == list(chip_smoke.ZOO_2D)
+    assert [r["model"] for r in out["nets3d"]] == list(chip_smoke.ZOO_3D)
+    for r in out["models"] + out["nets3d"]:
+        assert r["fwd_ms"] > 0 and r["fwd_bwd_ms"] > 0 and r["ref_err"] == 0
+    counted = [r for r in out["models"] if "launches" in r]
+    assert [r["model"] for r in counted] == ["unet_cct_3h", "unet_ds",
+                                             "unet_urds"]
+    assert all(r["launches"] == r["expected"] for r in counted)
+    assert [r["encoder_weights"] for r in out["train"]] == [
+        False, False, True, False]
+    for r in out["train"]:
+        assert r["launches"] == r["expected"]
+        assert r["launches"]["augment"] == 2 and sum(
+            r["launches"].values()) == 2
+    assert [r["dice_err"] for r in out["inference"]] == [0.0, 0.0]
+    assert out["svc_test"]["dice_err"] == 0.0
+
+
+def test_zoo_counts_follow_the_model_shape():
+    """fwd_bwd_counts: a train-mode forward launches the stats kernel for
+    every ConvBlock conv and the fwd kernel for every head; the backward
+    a dgrad for every conv but the stem and a wgrad for every conv."""
+    assert chip_smoke.fwd_bwd_counts("unet_ds") == {
+        "conv3x3_fwd_stats": 18, "conv3x3_fwd": 4 + 21, "conv3x3_wgrad": 22,
+        "augment": 0, "augment_s2l": 0, "maxpool_fwd": 4, "maxpool_bwd": 4,
+        "gated_crf": 0}
+    c3h = chip_smoke.fwd_bwd_counts("unet_cct_3h")
+    assert (c3h["conv3x3_fwd_stats"], c3h["conv3x3_fwd"],
+            c3h["conv3x3_wgrad"]) == (34, 3 + 36, 37)
+    assert chip_smoke.fwd_bwd_counts("unet_urds") == \
+        chip_smoke.fwd_bwd_counts("unet_ds")
+    for name in ("pnet", "efficient_unet"):
+        assert chip_smoke.eval_counts(name) == {}
+        assert chip_smoke.per_step_counts(name, "pce") == dict(
+            chip_smoke.per_step_counts("scribblevc"), gated_crf=0)
+
+
+def test_method_bundle_builds_dmpls_on_unet_cct():
+    """dmpls from memory (the card has no h5py) builds UNet_CCT, as its
+    build() does, past the single-output check of make_model_and_state."""
+    cfg = TrainConfig(method="dmpls", model="unet_cct", device="cpu",
+                      batch_size=2, patch_size=(32, 32),
+                      compute_dtype="float32", sup_type="scribble")
+    bundle, _ = chip_smoke.method_bundle(
+        cfg, synthetic_slices(4, (32, 32), seed=1, sup_type="scribble"),
+        None)
+    assert type(bundle.model).__name__ == "UNetCCT"

@@ -80,7 +80,7 @@ EVERY_FLAG = [
     "--period_iter", "13", "--alpha", "0.375", "--val_every", "17",
     "--ckpt_every", "19", "--log_every", "3", "--compute_dtype", "float32",
     "--snapshot_root", "snap", "--resume", "--data_limit", "21",
-    "--aug_mode", "host"]
+    "--aug_mode", "host", "--encoder_weights", "enc.msgpack"]
 
 
 def _shared_fields(port_cfg, jax_cfg):
@@ -113,11 +113,11 @@ def test_config_from_args_matches_the_jax_cli(name, argv):
 def test_the_parser_keeps_no_tpu_flag():
     parser = cli.build_parser({})
     for flag in ("--steps_per_call", "--num_devices", "--profile_steps",
-                 "--device_data", "--remat", "--fast_prng",
-                 "--encoder_weights"):
+                 "--device_data", "--remat", "--fast_prng"):
         with pytest.raises(SystemExit):
             parser.parse_args([flag, "1"])
     assert parser.parse_args([]).device == "cuda"
+    assert parser.parse_args([]).encoder_weights is None
 
 
 def test_resolve_script_takes_script_and_method_names():

@@ -147,8 +147,16 @@ def test_predictor_batched_equals_per_volume(acdc_tree):
                                         (net_factory, "unet_cct_3h"),
                                         (net_factory, "unet_ds")])
 def test_unported_names_name_their_roadmap_item(build, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
-        build(name)
+    """These names raised NotImplementedError citing their ROADMAP item
+    until the zoo was ported (ROADMAP Queue 1, item 14, done): they now
+    build, with the JAX factory's number of outputs."""
+    from wsl4mis_torch.models import MODEL_NUM_OUTPUTS
+
+    model = build(name, 4, dtype=torch.float32)
+    with torch.no_grad():
+        out = model(torch.zeros(1, 32, 32, 1), train=False)
+    out = out if isinstance(out, tuple) else (out,)
+    assert len(out) == MODEL_NUM_OUTPUTS[name]
 
 
 def test_port_imports_no_jax():

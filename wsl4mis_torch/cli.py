@@ -4,14 +4,20 @@ package's train and test scripts under ``scripts/``).
     python -m wsl4mis_torch.cli train <script-or-method> [flags]
     python -m wsl4mis_torch.cli train_scribblevc {ACDC,MSCMR} [flags]
     python -m wsl4mis_torch.cli test [flags]
+    python -m wsl4mis_torch.cli test_scribblevc {ACDC,Prostate} [flags]
+    python -m wsl4mis_torch.cli val_curve LOG [LOG ...]
+    python -m wsl4mis_torch.cli convert_torch_weights --torch_ckpt PTH --out F
 
 ``train`` takes a reference train script's name (``train_fully_supervised_2D``,
 ``.py`` optional) or a method name, with that script's defaults
 (METHOD_DEFAULTS; a method with no script of its own takes the parser's)
 and the reference flag names. ``train_scribblevc`` is
 train_ACDC_scribblevc.py / train_MSCMR_scribblevc.py (epochs, AdamW's
-lr), ``test`` test_2D_fully.py (``--model unet_cct``: test_2D_fully_sps.py).
-Every command runs on the card unless given ``--device cpu``.
+lr), ``test`` test_2D_fully.py (``--model unet_cct``: test_2D_fully_sps.py),
+``test_scribblevc`` test_ACDC_scribblevc.py / test_scribblevc.py (and, with
+``--checkpoints``, test_scribblevc_multi.py), ``val_curve`` val_curve.py and
+``convert_torch_weights`` convert_torch_weights.py. Every command that
+runs a model runs on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import argparse
 import ast
 import logging
 import os
+import re
 import sys
 
 import torch
@@ -27,8 +34,14 @@ import torch
 from .engine.config import TrainConfig
 from .engine.methods import available_methods, get_method
 from .engine.trainer import Trainer
-from .eval.infer import InferenceConfig, run_inference
-from .utils.checkpoint import load_model_checkpoint
+from .data.acdc import AcdcVolumeDataset, maag_test_ids, prostate_fold_ids
+from .eval.infer import (
+    InferenceConfig,
+    load_scribblevc,
+    run_inference,
+    score_scribblevc,
+)
+from .utils.checkpoint import load_model_checkpoint, save_flax_msgpack
 
 # The DEFAULTS and METHOD of each scripts/train_*.py of the JAX package,
 # keyed by the script's name.
@@ -148,6 +161,9 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
     add("--aug_mode", type=str, default="device", choices=["device", "host"],
         help="device: in-step augmentation; host: exact reference "
              "augment-then-zoom semantics on the host")
+    add("--encoder_weights", type=str, default=None,
+        help="efficient_unet: a converted encoder file "
+             "(convert_torch_weights)")
     add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     return p
 
@@ -187,6 +203,7 @@ def config_from_args(args, method: str) -> TrainConfig:
         data_limit=args.data_limit,
         aug_mode=args.aug_mode,
         device=args.device,
+        encoder_weights=args.encoder_weights,
     )
 
 
@@ -330,6 +347,157 @@ def test_main(argv=None) -> float:
     return run_inference(inference_config(test_parser().parse_args(argv)))
 
 
+def scribblevc_test_parser(dataset: str) -> argparse.ArgumentParser:
+    """The flags of scripts/test_ACDC_scribblevc.py (ACDC, plus
+    --checkpoints: test_scribblevc_multi.py) or test_scribblevc.py
+    (Prostate), plus --device."""
+    acdc = dataset == "ACDC"
+    p = argparse.ArgumentParser(prog=f"test_scribblevc {dataset}")
+    add = p.add_argument
+    add("--root_path", type=str, default=None if acdc else "../data/Prostate")
+    add("--exp", type=str, default=f"{dataset}_ScribbleVC")
+    add("--fold", type=str, default="MAAGfold" if acdc else "prostate_fold1")
+    add("--sup_type", type=str, default="scribble")
+    add("--num_classes", type=int, default=4 if acdc else 3)
+    add("--snapshot_root", type=str, default="model")
+    add("--checkpoint", type=str, default="scribblevc_best_model.pth")
+    if acdc:
+        add("--checkpoints", type=str, nargs="+", default=None,
+            help="several checkpoints of the snapshot, one after another")
+    add("--raw_data_path", type=str, default=None)
+    add("--compute_dtype", type=str, default="bfloat16")
+    add("--data_limit", type=int, default=None)
+    add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    return p
+
+
+def scribblevc_inference_config(args) -> InferenceConfig:
+    """The offline ScribbleVC test's inference settings (spacing lookup,
+    classes, device) from its parsed flags."""
+    return InferenceConfig(root_path=args.root_path,
+                           raw_data_path=args.raw_data_path,
+                           num_classes=args.num_classes, device=args.device)
+
+
+def scribblevc_checkpoints(args) -> list[str]:
+    """The checkpoint files the ScribbleVC test scores, in order: each of
+    --checkpoints (test_scribblevc_multi.py), else --checkpoint, in the
+    snapshot {snapshot_root}/{exp}_{fold}/{sup_type}."""
+    snapshot = os.path.join(args.snapshot_root, f"{args.exp}_{args.fold}",
+                            args.sup_type)
+    names = getattr(args, "checkpoints", None) or [args.checkpoint]
+    return [os.path.join(snapshot, name) for name in names]
+
+
+def scribblevc_test_main(argv, dataset: str) -> dict:
+    """ScribbleVC's offline test on MAAG's 15 test patients (ACDC) or a
+    prostate fold's test patients: {checkpoint: mean (classes-1, 3) [dice,
+    hd95, asd]} (score_scribblevc), each printed; with --checkpoints, a
+    checkpoint the snapshot lacks prints MISSING."""
+    args = scribblevc_test_parser(dataset).parse_args(argv)
+    if dataset == "ACDC":
+        volumes = AcdcVolumeDataset(base_dir=args.root_path,
+                                    custom_patients=maag_test_ids(),
+                                    limit=args.data_limit)
+    else:
+        volumes = AcdcVolumeDataset(
+            base_dir=args.root_path,
+            custom_patients=prostate_fold_ids(args.fold)[1],
+            volumes_dirname="Prostate_training_volumes",
+            limit=args.data_limit)
+    icfg = scribblevc_inference_config(args)
+    paths = scribblevc_checkpoints(args)
+    results = {}
+    for path in paths:
+        name = os.path.basename(path)
+        if len(paths) > 1 and not os.path.exists(path):
+            print(name, "MISSING")
+            continue
+        model, memory = load_scribblevc(path, args.num_classes,
+                                        args.compute_dtype, args.device)
+        avg = score_scribblevc(icfg, model, memory, list(volumes))
+        if len(paths) > 1:
+            print(name, "per-class [dice hd95 asd]:")
+        print(avg)
+        print(avg.mean(axis=0), flush=True)
+        results[name] = avg
+    return results
+
+
+# the Trainer's validation line (engine/trainer.py), also the JAX
+# package's; hd95 is nan where a NaN-aware validation found nothing
+VAL_LINE = re.compile(r"iteration (\d+) : mean_dice : (nan|[\d.]+) "
+                      r"mean_hd95 : (nan|[\d.]+)")
+
+
+def val_curve(path: str) -> list[tuple[int, float, float]]:
+    """(iteration, mean val Dice, mean HD95) of each validation line of a
+    train log."""
+    pts = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            m = VAL_LINE.search(line)
+            if m:
+                pts.append((int(m[1]), float(m[2]), float(m[3])))
+    return pts
+
+
+def val_curve_main(paths) -> None:
+    """scripts/val_curve.py: per log the best and the final val Dice and a
+    curve of about 20 points."""
+    for path in paths:
+        pts = val_curve(path)
+        print(f"== {path}: {len(pts)} val points ==")
+        if not pts:
+            continue
+        best = max(pts, key=lambda p: p[1])
+        print(f"best  iter {best[0]:6d}  dice {best[1]:.4f}  "
+              f"hd95 {best[2]:.2f}")
+        print(f"final iter {pts[-1][0]:6d}  dice {pts[-1][1]:.4f}  "
+              f"hd95 {pts[-1][2]:.2f}")
+        step = max(1, len(pts) // 20)
+        for i, (it, d, h) in enumerate(pts):
+            if i % step == 0 or i == len(pts) - 1:
+                print(f"  {it:6d}  {d:.4f}  {h:7.2f}")
+
+
+def convert_parser() -> argparse.ArgumentParser:
+    """The flags of scripts/convert_torch_weights.py."""
+    p = argparse.ArgumentParser(prog="convert_torch_weights")
+    add = p.add_argument
+    add("--torch_ckpt", type=str, required=True,
+        help="efficientnet_pytorch state_dict (.pth)")
+    add("--model_name", type=str, default="efficientnet-b3")
+    add("--in_channels", type=int, default=1)
+    add("--out", type=str, required=True, help="output .msgpack path")
+    return p
+
+
+def convert_main(argv=None) -> str:
+    """An efficientnet_pytorch state_dict to the flax msgpack encoder file
+    that --encoder_weights reads, in either package: {"encoder_params",
+    "encoder_batch_stats", "in_channels"}."""
+    import numpy as np
+
+    from .utils.params import _flatten
+    from .utils.torch_import import convert_efficientnet_encoder
+
+    args = convert_parser().parse_args(argv)
+    sd = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    sd = {k: v.numpy() for k, v in sd.items() if hasattr(v, "numpy")}
+    params, stats = convert_efficientnet_encoder(sd, args.model_name,
+                                                 args.in_channels)
+    save_flax_msgpack(args.out, {
+        "encoder_params": params, "encoder_batch_stats": stats,
+        "in_channels": np.asarray(args.in_channels, np.int32)})
+    n = sum(v.size for _, v in _flatten(params))
+    print(f"wrote {args.out}: {n / 1e6:.2f}M encoder params "
+          f"({args.model_name}, in_channels={args.in_channels})")
+    return args.out
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     command = argv[0] if argv else None
@@ -340,6 +508,13 @@ def main(argv=None) -> None:
         print(scribblevc_main(argv[2:], argv[1]))
     elif command == "test":
         test_main(argv[1:])
+    elif command == "test_scribblevc" and argv[1:2] in (["ACDC"],
+                                                         ["Prostate"]):
+        scribblevc_test_main(argv[2:], argv[1])
+    elif command == "val_curve":
+        val_curve_main(argv[1:])
+    elif command == "convert_torch_weights":
+        convert_main(argv[1:])
     else:
         raise SystemExit(__doc__)
 

@@ -64,6 +64,13 @@ _MAAG_TRAIN70 = _MAAG_TRAIN35 + [2, 76, 34, 85, 70, 86, 3, 8, 51, 40, 7, 13,
                                  92, 29, 11, 83, 68, 75, 67, 16, 48, 66, 20,
                                  15]
 _MAAG_VAL = [84, 32, 27, 96, 17, 18, 57, 81, 79, 22, 1, 44, 49, 25, 95]
+# the held-out offline test set (test_ACDC_scribblevc.py:45-46)
+_MAAG_TEST = [5, 39, 77, 82, 78, 10, 64, 24, 30, 73, 80, 41, 36, 60, 72]
+
+
+def maag_test_ids() -> list[str]:
+    """The 15 patients of ScribbleVC's offline MAAG test."""
+    return ["patient{:0>3}".format(i) for i in _MAAG_TEST]
 
 
 def maag_fold_ids(fold: str, seed: int = 0) -> tuple[list[str], list[str]]:
@@ -257,6 +264,7 @@ class AcdcVolumeDataset:
     fold: str = "fold1"
     limit: int | None = None
     volumes_dirname: str = "ACDC_training_volumes"
+    custom_patients: list[str] | None = None  # in place of fold's test ids
 
     cases: list[str] = field(init=False, repr=False)
     volumes: list[dict] = field(init=False, repr=False)
@@ -266,7 +274,8 @@ class AcdcVolumeDataset:
 
         base = self.base_dir or default_acdc_root()
         vol_dir = os.path.join(base, self.volumes_dirname)
-        wanted = set(fold_ids(self.fold)[1])
+        wanted = set(self.custom_patients if self.custom_patients
+                     is not None else fold_ids(self.fold)[1])
         names = sorted(
             f for f in os.listdir(vol_dir) if f.split("_")[0] in wanted
         )

@@ -50,6 +50,8 @@ class TrainConfig:
                                         # pass when the method has a
                                         # select_predictor (selection
                                         # never reads it)
+    encoder_weights: str | None = None  # efficient_unet: a converted
+                                        # encoder file (convert_torch_weights)
     aug_mode: str = "device"            # "device": augment inside the step;
                                         # "host": batches arrive augmented
     device: str = "cuda"                # "cuda" or "cpu"; cuda never falls

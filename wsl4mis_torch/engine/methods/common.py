@@ -19,6 +19,7 @@ from ...data import (
 )
 from ...data.augment import HostRandomGenerator
 from ...models import net_factory
+from ...models.factory import MODEL_NUM_OUTPUTS
 from ...ops import losses
 from ...utils.device import resolve_device
 from ..config import TrainConfig
@@ -67,11 +68,29 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
 
 def make_model_and_state(cfg: TrainConfig, *, model_name=None, extra=None):
     """Model with torch-default init drawn from cfg.seed, on cfg.device,
-    and a fresh TrainState with the reference SGD."""
+    and a fresh TrainState with the reference SGD. A method that names no
+    model takes cfg.model's single output: a model with several raises
+    ValueError (the JAX step fails on the tuple). An efficient_unet starts
+    from cfg.encoder_weights where given (a file of
+    ``convert_torch_weights``, read as the JAX package reads it)."""
+    name = model_name or cfg.model
+    outputs = MODEL_NUM_OUTPUTS.get(name, 1)
+    if model_name is None and outputs != 1:
+        raise ValueError(
+            f"method {cfg.method!r} trains a model with one output; "
+            f"model {name!r} returns {outputs}")
     device = resolve_device(cfg.device)
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = net_factory(model_name or cfg.model, cfg.num_classes,
-                        dtype=compute_dtype(cfg), generator=gen).to(device)
+    model = net_factory(name, cfg.num_classes, dtype=compute_dtype(cfg),
+                        generator=gen)
+    if cfg.encoder_weights and name == "efficient_unet":
+        from ...utils.checkpoint import load_jax_checkpoint
+        from ...utils.torch_import import load_encoder_weights
+
+        payload = load_jax_checkpoint(cfg.encoder_weights)
+        load_encoder_weights(model, payload["encoder_params"],
+                             payload["encoder_batch_stats"])
+    model = model.to(device)
     opt = ReferenceSGD(model.parameters(), cfg.base_lr, cfg.max_iterations)
     return model, TrainState(model=model, opt=opt, extra=extra)
 

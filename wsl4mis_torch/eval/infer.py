@@ -99,13 +99,19 @@ def _case_spacing(cfg: InferenceConfig, case: str) -> tuple:
     return (sz, sx, sy)
 
 
-def score_volumes(cfg: InferenceConfig, model, volumes, save_dir=None):
+def score_volumes(cfg: InferenceConfig, model, volumes, save_dir=None,
+                  decision_fn=None, forward_kwargs=None, variables=None):
     """(mean (classes-1, 3) [dice, hd95, asd] over `volumes`, their (D, H,
     W) int32 predictions); with save_dir, each case's {case}_pred, _img and
     _gt.nii.gz there, at the case's spacing. volumes: {"case", "image",
-    "label"} dicts in memory."""
-    predictor = VolumePredictor(model, (256, 256), device=cfg.device)
-    preds = predictor.predict_volumes([vol["image"] for vol in volumes])
+    "label"} dicts in memory. decision_fn, forward_kwargs and variables
+    go to the validation's VolumePredictor (default: the argmax of the
+    first output)."""
+    predictor = VolumePredictor(model, (256, 256), device=cfg.device,
+                                decision_fn=decision_fn,
+                                forward_kwargs=forward_kwargs)
+    preds = predictor.predict_volumes([vol["image"] for vol in volumes],
+                                      variables)
     totals = np.zeros((cfg.num_classes - 1, 3), np.float64)
     for vol, prediction in zip(volumes, preds):
         case = vol["case"]
@@ -151,3 +157,33 @@ def run_inference(cfg: InferenceConfig) -> float:
     mean_dice = total / len(cfg.folds)
     print(mean_dice)
     return mean_dice
+
+
+def load_scribblevc(path: str, num_classes: int, compute_dtype: str,
+                    device: str):
+    """(ScribbleVC on `device` with the checkpoint's weights, its class
+    memory): the checkpoint's memory, or zeros where it holds none (an
+    older checkpoint; the test's rule does not read it)."""
+    model = net_factory("scribblevc", num_classes,
+                        dtype=getattr(torch, compute_dtype))
+    model = model.to(resolve_device(device))
+    memory = model.init_memory((256, 256), model.cls_token.device)
+    load_model_checkpoint(path, model, {"class_memory": memory},
+                          extra_optional=True)
+    print(f"init weight from {path}")
+    return model, memory
+
+
+def score_scribblevc(cfg: InferenceConfig, model, memory, volumes):
+    """ScribbleVC's offline test (test_ACDC_scribblevc.py,
+    test_scribblevc.py): the argmax of the two heads' mean softmax without
+    the class memory, the ScribbleVC bundle's select predictor, so a
+    checkpoint's Dice equals its select-rule validation's; mean (classes-1,
+    3) [dice, hd95, asd] at the cases' spacing."""
+    from ..engine.methods.scribblevc import mean_softmax_decision
+
+    avg, _ = score_volumes(cfg, model, volumes,
+                           decision_fn=mean_softmax_decision,
+                           forward_kwargs={"use_class_rep": False},
+                           variables={"memory": memory})
+    return avg

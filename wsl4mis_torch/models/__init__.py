@@ -1,11 +1,27 @@
-"""Models of the port: UNet, UNet_CCT and their building blocks, the
-FCDiscriminator of deep_adversarial, and ScribbleVC."""
+"""Models of the port: the 2D zoo of ``net_factory`` (UNet, UNet_CCT,
+UNet_CCT_3H, UNet_DS, UNet_URDS, PNet2D, EfficientNet-UNet) and
+ScribbleVC, the FCDiscriminator of deep_adversarial and its 3D
+counterpart, the 3D nets of ``net_factory_3d`` and the legacy GAN
+blocks."""
 
-from .discriminator import FCDiscriminator
-from .factory import net_factory
+from .discriminator import FC3DDiscriminator, FCDiscriminator
+from .efficientunet import EffiUNet
+from .factory import MODEL_NUM_OUTPUTS, PERTURBED_MODELS, net_factory
+from .nets3d import (
+    AttentionUNet3D,
+    UNet3D,
+    VNet,
+    VoxResNet,
+    net_factory_3d,
+)
 from .norm import FusedBatchNorm
+from .pnet import PNet2D
 from .scribblevc import ScribbleVC
-from .unet import UNet, UNetCCT
+from .unet import UNet, UNetCCT, UNetCCT3H, UNetDS, UNetURDS
 
-__all__ = ["FCDiscriminator", "FusedBatchNorm", "ScribbleVC", "UNet",
-           "UNetCCT", "net_factory"]
+__all__ = ["AttentionUNet3D", "EffiUNet", "FC3DDiscriminator",
+           "FCDiscriminator",
+           "FusedBatchNorm", "MODEL_NUM_OUTPUTS", "PERTURBED_MODELS",
+           "PNet2D", "ScribbleVC", "UNet", "UNet3D", "UNetCCT", "UNetCCT3H",
+           "UNetDS", "UNetURDS", "VNet", "VoxResNet", "net_factory",
+           "net_factory_3d"]

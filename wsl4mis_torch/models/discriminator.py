@@ -1,6 +1,7 @@
 """FCDiscriminator for adversarial semi-supervised training (port of
 ``wsl4mis_tpu/models/discriminator.py``; reference
-networks/discriminator.py:58-101), NHWC.
+networks/discriminator.py:58-101), NHWC; and FC3DDiscriminator, its 3D
+counterpart (NDHWC).
 
 Two 4x4 stride-2 pad-1 stems, on the softmax map and on the image, summed;
 4x4 s2 convs to 2 ndf and 4 ndf, each followed by LeakyReLU(0.2) and, in
@@ -23,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet import _uniform, channel_dropout, channel_dropout_mask
+from ..utils.params import zoo_key
+from .layers import Conv, Dropout
+from .unet import _gen, _uniform, channel_dropout, channel_dropout_mask
 
 
 class Conv4x4s2(nn.Module):
@@ -89,3 +92,51 @@ class FCDiscriminator(nn.Module):
         x = F.avg_pool2d(x.permute(0, 3, 1, 2), k, stride=k)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.dense(x).float()
+
+
+class FC3DDiscriminator(nn.Module):
+    """The 3D volume discriminator (reference networks/discriminator.py:
+    6-55), NDHWC: 4x4x4 stride-2 pad-1 stems on the segmentation map and
+    on the image, summed; convs to 2, 4 and 8 ndf; LeakyReLU(0.2) after
+    each, channel dropout 0.5 after the first three in train mode (masks
+    from rngs["feature_perturb"] or ``channel_masks``); an average pool
+    with window and stride min(6, D) (6 at the reference 96^3); a 2-way
+    dense head, f32 logits. Convolutions are cuDNN's ``F.conv3d``
+    (``layers.Conv``), torch-default init; submodules named after flax's
+    kinds (``conv.k``, ``dense.0``)."""
+
+    flax_key = staticmethod(zoo_key)
+
+    def __init__(self, num_classes: int = 2, ndf: int = 64,
+                 patch_size=(96, 96, 96), dtype=torch.bfloat16,
+                 generator=None):
+        super().__init__()
+        chans = ((num_classes, ndf), (1, ndf), (ndf, 2 * ndf),
+                 (2 * ndf, 4 * ndf), (4 * ndf, 8 * ndf))
+        self.conv = nn.ModuleList(
+            Conv(c, o, (4, 4, 4), 2, bias=True, padding=1, dtype=dtype,
+                 generator=generator, init="torch") for c, o in chans)
+        d, h, w = (s // 16 for s in patch_size)  # four stride-2 convs
+        k = min(6, d)
+        self.dense = nn.ModuleList([Dense(
+            (d // k) * (h // k) * (w // k) * 8 * ndf, 2, dtype, generator)])
+
+    def forward(self, seg_map, image, train: bool = False, rngs=None,
+                channel_masks=None):
+        """seg_map (B,D,H,W,C), image (B,D,H,W,1) -> (B,2) f32 logits;
+        channel_masks: three (B,1,1,1,C) keep masks in place of the
+        draws."""
+        drop = Dropout(_gen(rngs, "feature_perturb"), channel_masks)
+
+        def act(z, dropped):
+            z = F.leaky_relu(z, 0.2)
+            return drop(z, 0.5, channel=True) if dropped and train else z
+
+        x = act(self.conv[0](seg_map) + self.conv[1](image), True)
+        x = act(self.conv[2](x), True)
+        x = act(self.conv[3](x), True)
+        x = act(self.conv[4](x), False)
+        k = min(6, x.shape[1])
+        x = F.avg_pool3d(x.permute(0, 4, 1, 2, 3), k, stride=k)
+        x = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
+        return self.dense[0](x).float()

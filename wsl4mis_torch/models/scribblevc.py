@@ -51,7 +51,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.params import scribblevc_key
-from .norm import FusedBatchNorm
+from .layers import (
+    BatchNorm,
+    Conv,
+    drop_path,
+    interp_axis,
+    same_pads,
+    upsample_nearest,
+)
 
 _TRUNC_STD = 0.02 / 0.87962566103423978  # flax truncated_normal(0.02)
 
@@ -62,110 +69,25 @@ def _trunc_normal(shape, generator):
         b=2 * _TRUNC_STD, generator=generator))
 
 
-def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
-    """(low, high) padding of flax / XLA "SAME": the low side gets the
-    smaller half, so a stride-2 3x3 window on an even size pads (0, 1)."""
-    total = max((-(-size // s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _interp_axis(x, axis: int, out_size: int, align_corners: bool):
-    """1D linear interpolation along one axis, the weights in x's dtype
-    (the port's copy of ``wsl4mis_tpu/models/nets3d._interp_axis``)."""
-    in_size = x.shape[axis]
-    if in_size == out_size:
-        return x
-    pos = torch.arange(out_size, dtype=torch.float32, device=x.device)
-    if align_corners and out_size > 1:
-        src = pos * ((in_size - 1) / (out_size - 1))
-    else:
-        src = (pos + 0.5) * (in_size / out_size) - 0.5
-    src = src.clamp(0, in_size - 1)
-    lo = src.floor()
-    w = (src - lo).to(x.dtype)
-    lo = lo.long()
-    hi = (lo + 1).clamp(max=in_size - 1)
-    shape = [1] * x.ndim
-    shape[axis] = out_size
-    w = w.view(shape)
-    return (x.index_select(axis, lo) * (1 - w)
-            + x.index_select(axis, hi) * w)
-
-
 def upsample2d(x, factor: int, method: str = "bilinear_ac"):
     """NHWC x factor upsampling: "bilinear_ac" (align_corners) or
     "nearest" (each pixel repeated factor x factor times)."""
     if method == "nearest":
-        return x.repeat_interleave(factor, 1).repeat_interleave(factor, 2)
+        return upsample_nearest(x, factor)
     for axis in (1, 2):
-        x = _interp_axis(x, axis, x.shape[axis] * factor, True)
+        x = interp_axis(x, axis, x.shape[axis] * factor, True)
     return x
-
-
-def drop_path(x, rate: float, generator=None, keep=None):
-    """Stochastic depth: each sample's residual branch kept with
-    probability 1 - rate (and scaled by 1 / (1 - rate)) or zeroed. `keep`
-    (B, 1, ..., 1) bool replaces the draw from `generator`."""
-    if rate == 0.0:
-        return x
-    if keep is None:
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        keep = torch.rand(shape, generator=generator,
-                          device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate),
-                       torch.zeros((), dtype=x.dtype, device=x.device)
-                       ).to(x.dtype)
 
 
 def _max_pool_same(x):
     """NHWC 3x3 stride-2 max pool, SAME padding with -inf."""
-    (ht, hb), (wl, wr) = (_same_pads(n, 3, 2) for n in x.shape[1:3])
+    (ht, hb), (wl, wr) = (same_pads(n, 3, 2) for n in x.shape[1:3])
     x = F.pad(x, (0, 0, wl, wr, ht, hb), value=-math.inf)
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
 
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
-
-
-class Conv(nn.Module):
-    """flax nn.Conv over NHWC: kernel (kh, kw, C, O) HWIO f32, optional
-    bias, SAME or VALID padding, compute in `dtype`."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel=(3, 3), stride=1,
-                 bias: bool = False, padding: str = "SAME",
-                 dtype=torch.bfloat16, generator=None):
-        super().__init__()
-        kh, kw = kernel
-        self.stride = stride
-        self.padding = padding
-        self.dtype = dtype
-        std = math.sqrt(2.0 / (out_ch * kh * kw))  # kaiming, fan-out
-        self.kernel = nn.Parameter(torch.empty(kh, kw, in_ch, out_ch).normal_(
-            0.0, std, generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
-
-    def forward(self, x):
-        x = x.to(self.dtype)
-        k = self.kernel.to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        kh, kw = k.shape[:2]
-        s = self.stride
-        if kh == kw == 1:
-            if s > 1:
-                x = x[:, ::s, ::s]
-            return F.linear(x, k[0, 0].t(), b)
-        pad = (0, 0)
-        if self.padding == "SAME":
-            (ht, hb), (wl, wr) = (_same_pads(n, kk, s) for n, kk in
-                                  zip(x.shape[1:3], (kh, kw)))
-            if (ht, wl) == (hb, wr):
-                pad = (ht, wl)
-            else:
-                x = F.pad(x, (0, 0, wl, wr, ht, hb))
-        y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), b,
-                     stride=s, padding=pad)
-        return y.permute(0, 2, 3, 1)
 
 
 class Dense(nn.Module):
@@ -181,23 +103,6 @@ class Dense(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.kernel.to(self.dtype).t(), b)
-
-
-class BatchNorm(FusedBatchNorm):
-    """flax nn.BatchNorm(dtype=float32): statistics of x in f32 (one-pass
-    variance, as flax's), output (x - mean) * scale / sqrt(var + eps) +
-    bias in f32; the caller casts."""
-
-    def forward(self, x, train: bool):
-        xf = x.float()
-        moments = None
-        if train:
-            dims = tuple(range(x.ndim - 1))
-            moments = (xf.sum(dims), (xf * xf).sum(dims))
-        mean, var = self.statistics(xf.numel() // xf.shape[-1], train,
-                                    moments)
-        return (xf - mean) * (self.scale * torch.rsqrt(var + self.epsilon)) \
-            + self.bias
 
 
 class LayerNorm(nn.Module):

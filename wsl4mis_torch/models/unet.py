@@ -1,4 +1,5 @@
-"""2D U-Net and UNet_CCT (port of ``wsl4mis_tpu/models/unet.py``), NHWC.
+"""The 2D U-Net family (port of ``wsl4mis_tpu/models/unet.py``), NHWC:
+UNet, UNet_CCT, UNet_CCT_3H, UNet_DS and UNet_URDS.
 
 * ConvBlock = conv3x3 -> BN -> LeakyReLU(0.01) -> dropout -> conv3x3 ->
   BN -> LeakyReLU. Encoder channels (16, 32, 64, 128, 256) with dropout
@@ -18,9 +19,22 @@
   U(+-1/sqrt(fan_in)) for weight and bias, with fan_in = O*4 for the
   transposed conv (torch reads it from weight dim 1).
 
-Random draws (dropout masks, UNet_CCT channel-dropout masks) come from
-the generators in ``rngs`` ({"dropout", "feature_perturb"}); UNetCCT also
-takes the channel masks directly, so tests can inject them.
+* UNet_DS (and UNet_URDS) decode with a 3x3 head at every scale; the
+  coarse heads' logits are repeated up to the input size (nearest, source
+  index i // f as ``jax.image.resize``'s) and then cast to f32; the four
+  outputs come as (dp0, dp1, dp2, dp3), full scale first. The heads are
+  ``Conv3x3``s, so they run the conv kernels as the decoder's head does.
+* UNet_URDS perturbs the decoder's features before the coarse heads in
+  train mode: channel dropout at 1/8, feature dropout at 1/4, feature
+  noise at 1/2 (unet.py:797-808).
+* UNet_CCT_3H adds a third decoder, ``aux_decoder2``, fed the feature
+  noise of each encoder feature (the JAX package's reading of the
+  reference, whose forward reuses aux_decoder1 there).
+
+Random draws (dropout masks, channel-dropout masks, feature noise, the
+feature-dropout cut) come from the generators in ``rngs`` ({"dropout",
+"feature_perturb"}); the models also take the perturbations' draws
+directly, so tests can inject them.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from torch import nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_stats
 from ..ops.maxpool import max_pool_2x2
+from .layers import upsample_nearest
 from .norm import FusedBatchNorm
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
@@ -92,8 +107,8 @@ def channel_dropout(x, keep, rate: float = 0.5):
 
 
 def channel_dropout_mask(x, generator=None, rate: float = 0.5):
-    """(N,1,1,C) bool keep mask, P(keep) = 1 - rate."""
-    shape = (x.shape[0], 1, 1, x.shape[-1])
+    """(N,1,...,1,C) bool keep mask, P(keep) = 1 - rate."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
     u = torch.rand(shape, generator=generator, device=x.device)
     return u < (1.0 - rate)
 
@@ -224,3 +239,143 @@ class UNetCCT(nn.Module):
             feats = [channel_dropout(f, m)
                      for f, m in zip(feats, channel_masks)]
         return main, self.aux_decoder1(feats, train)
+
+
+def feature_noise_draw(x, generator=None, uniform_range: float = 0.3):
+    """U(-r, r) noise of shape x.shape[1:] in f32 (one draw for the
+    batch)."""
+    u = torch.rand(x.shape[1:], generator=generator, device=x.device)
+    return u * (2 * uniform_range) - uniform_range
+
+
+def feature_noise(x, noise):
+    """x * noise + x in x's dtype, the noise (x.shape[1:]) shared across
+    the batch (unet.py:816-821)."""
+    return x * noise.to(x.dtype)[None] + x
+
+
+def feature_dropout(x, cut):
+    """Zero the positions whose channel mean reaches cut * (the sample's
+    largest channel mean); cut is one scalar in [0.7, 0.9) for the batch
+    (unet.py:824-830). The mean reduces in f32 and rounds to x's dtype."""
+    attention = x.float().mean(-1, keepdim=True).to(x.dtype)
+    max_val = attention.flatten(1).amax(1)
+    thresh = max_val.float() * cut
+    mask = (attention.float() < thresh[:, None, None, None]).to(x.dtype)
+    return x * mask
+
+
+class DecoderDS(nn.Module):
+    """Decoder with a 3x3 head at every scale (DecoderDS / DecoderURDS:
+    the perturbations, if any, are the caller's)."""
+
+    def __init__(self, features: Sequence[int], num_classes: int, dtype,
+                 generator=None):
+        super().__init__()
+        f = features
+        self.ups = nn.ModuleList(
+            UpBlock(f[i + 1], f[i], f[i], dtype, generator)
+            for i in (3, 2, 1, 0)
+        )
+        self.heads = nn.ModuleList(
+            Conv3x3(f[i], num_classes, dtype, generator) for i in (3, 2, 1, 0)
+        )
+
+    def forward(self, feats, train: bool, perturb=(None, None, None)):
+        """(dp0, dp1, dp2, dp3); perturb[i] (or None) maps the decoder
+        feature before the head at scale 1/2^(3-i)."""
+        x = feats[-1]
+        outs = []
+        for i, (up, skip, head) in enumerate(zip(self.ups, feats[-2::-1],
+                                                 self.heads)):
+            x = up(x, skip, train)
+            if i < 3:
+                z = x if perturb[i] is None else perturb[i](x)
+                outs.append(upsample_nearest(head(z), 2 ** (3 - i)).float())
+            else:
+                outs.append(head(x).float())
+        return tuple(outs[::-1])
+
+
+class UNetDS(nn.Module):
+    def __init__(self, num_classes: int = 4,
+                 features: Sequence[int] = DEFAULT_FEATURES,
+                 dropout: Sequence[float] = DEFAULT_DROPOUT,
+                 dtype=torch.bfloat16, in_ch: int = 1, generator=None):
+        super().__init__()
+        self.encoder = Encoder(in_ch, features, dropout, dtype, generator)
+        self.decoder = DecoderDS(features, num_classes, dtype, generator)
+
+    def forward(self, x, train: bool = False, rngs=None):
+        feats = self.encoder(x, train, _gen(rngs, "dropout"))
+        return self.decoder(feats, train)
+
+
+class UNetURDS(UNetDS):
+    """UNet_DS with URDS's train-mode perturbations before the coarse
+    heads, drawn from rngs["feature_perturb"] in the JAX package's key
+    order (k3, k2, k1): the channel-dropout mask, the feature-dropout cut,
+    the feature noise."""
+
+    def forward(self, x, train: bool = False, rngs=None, draws=None):
+        """draws: optional {"channel_mask" (N,1,1,C) bool, "cut" (), "noise"
+        (H/2, W/2, C)} in place of the draws."""
+        feats = self.encoder(x, train, _gen(rngs, "dropout"))
+        if not train:
+            return self.decoder(feats, train)
+        draws = dict(draws or {})
+        gen = _gen(rngs, "feature_perturb")
+
+        def dropout(z):
+            if "channel_mask" not in draws:
+                draws["channel_mask"] = channel_dropout_mask(z, gen)
+            return channel_dropout(z, draws["channel_mask"])
+
+        def cut(z):
+            if "cut" not in draws:
+                draws["cut"] = 0.7 + 0.2 * torch.rand(
+                    (), generator=gen, device=z.device)
+            return feature_dropout(z, draws["cut"])
+
+        def noise(z):
+            if "noise" not in draws:
+                draws["noise"] = feature_noise_draw(z, gen)
+            return feature_noise(z, draws["noise"])
+
+        return self.decoder(feats, train, (dropout, cut, noise))
+
+
+class UNetCCT3H(nn.Module):
+    """Three decoders: the main one, aux_decoder1 on channel-dropped
+    encoder features and aux_decoder2 on feature-noised ones (train mode;
+    eval feeds all three the features as they are)."""
+
+    def __init__(self, num_classes: int = 4,
+                 features: Sequence[int] = DEFAULT_FEATURES,
+                 dropout: Sequence[float] = DEFAULT_DROPOUT,
+                 dtype=torch.bfloat16, in_ch: int = 1, generator=None):
+        super().__init__()
+        self.encoder = Encoder(in_ch, features, dropout, dtype, generator)
+        self.main_decoder = Decoder(features, num_classes, dtype, generator)
+        self.aux_decoder1 = Decoder(features, num_classes, dtype, generator)
+        self.aux_decoder2 = Decoder(features, num_classes, dtype, generator)
+
+    def forward(self, x, train: bool = False, rngs=None, channel_masks=None,
+                noises=None):
+        """channel_masks / noises: optional per-feature keep masks (N,1,1,C)
+        and noise tensors (H,W,C) in place of the draws (masks first, then
+        noises, from rngs["feature_perturb"])."""
+        feats = self.encoder(x, train, _gen(rngs, "dropout"))
+        main = self.main_decoder(feats, train)
+        feats1 = feats2 = feats
+        if train:
+            gen = _gen(rngs, "feature_perturb")
+            if channel_masks is None:
+                channel_masks = [channel_dropout_mask(f, gen) for f in feats]
+            if noises is None:
+                noises = [feature_noise_draw(f, gen) for f in feats]
+            feats1 = [channel_dropout(f, m)
+                      for f, m in zip(feats, channel_masks)]
+            feats2 = [feature_noise(f, n) for f, n in zip(feats, noises)]
+        return (main, self.aux_decoder1(feats1, train),
+                self.aux_decoder2(feats2, train))

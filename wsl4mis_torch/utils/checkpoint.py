@@ -16,7 +16,11 @@ package writes under the same names (flax msgpack: params, batch_stats,
 step and ScribbleVC's class_memory), through ``load_jax_checkpoint`` and
 the flax bridge of ``utils.params``; the two formats are told apart by
 the zip header every ``torch.save`` file starts with. ``msgpack`` is
-imported only when a JAX file is read.
+imported only when a JAX file is read or written.
+
+``save_flax_msgpack`` writes a tree of dicts of numpy arrays as flax's
+``serialization.to_bytes`` does (the converted encoder weights
+that either package reads).
 """
 
 from __future__ import annotations
@@ -86,6 +90,43 @@ def _flax_ext(code: int, data: bytes):
     raise ValueError(f"unknown msgpack ext type {code} in a flax checkpoint")
 
 
+def _flax_ndarray_bytes(x: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _flax_ext_pack(x):
+    import msgpack
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_FLAX_NDARRAY, _flax_ndarray_bytes(x))
+    raise TypeError(f"cannot write {type(x)} into a flax msgpack file")
+
+
+def _sorted_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def save_flax_msgpack(path: str, tree: dict) -> None:
+    """A nested dict (str keys) of numpy arrays (0-d for a scalar) as
+    flax's msgpack: its ndarray ext type, each dict's keys in sorted order
+    (flax's state dicts), so the bytes are the JAX package's
+    save_checkpoint's."""
+    import msgpack
+
+    data = msgpack.packb(_sorted_tree(tree), default=_flax_ext_pack,
+                         strict_types=True)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 def load_jax_checkpoint(path: str) -> dict:
     """A checkpoint the JAX package wrote (flax msgpack) as nested dicts
     with numpy leaves. flax splits a leaf over 1 GiB into a chunk dict,
@@ -98,11 +139,13 @@ def load_jax_checkpoint(path: str) -> dict:
 
 
 def load_model_checkpoint(path: str, model: torch.nn.Module,
-                          state_extra: dict | None = None) -> int:
+                          state_extra: dict | None = None,
+                          extra_optional: bool = False) -> int:
     """Load an inference checkpoint of either package into `model`
     (strict: a missing or extra entry raises) and return its step. The
     entries of `state_extra` (ScribbleVC's class_memory: a dict of
-    tensors) take the file's values in place; the file must carry each."""
+    tensors) take the file's values in place; the file must carry each,
+    unless `extra_optional`, where one it lacks keeps its value."""
     with open(path, "rb") as f:
         magic = f.read(len(_TORCH_ZIP))
     extra = dict(state_extra or {})
@@ -110,7 +153,9 @@ def load_model_checkpoint(path: str, model: torch.nn.Module,
         payload = torch.load(path, map_location="cpu", weights_only=True)
         model.load_state_dict(payload["model"], strict=True)
         missing = sorted(extra.keys() - payload.keys())
-        if missing:
+        if extra_optional:
+            extra = {k: v for k, v in extra.items() if k not in missing}
+        elif missing:
             raise KeyError(f"{path} carries no {missing}")
         with torch.no_grad():
             for key, dst in extra.items():
@@ -122,6 +167,8 @@ def load_model_checkpoint(path: str, model: torch.nn.Module,
         return int(payload["step"])
     tree = load_jax_checkpoint(path)
     memory = extra.pop("class_memory", None)
+    if extra_optional and "class_memory" not in tree:
+        memory = None
     if extra:
         raise KeyError(f"a JAX inference checkpoint carries no "
                        f"{sorted(extra)}")

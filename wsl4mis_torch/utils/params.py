@@ -7,7 +7,10 @@ kernels (2,2,C,O), dense kernels (in, out) and BN scale/bias/mean/var in
 f32.
 
     Encoder_0 / ConvBlock_i            -> encoder.blocks.i
-    Decoder_0 | main_decoder | aux_decoder1 -> decoder | main_decoder | aux_decoder1
+    Decoder_0 | main_decoder | aux_decoder1 | aux_decoder2 -> the same
+                                          names (Decoder_0: decoder)
+    DecoderDS_0 | DecoderURDS_0        -> decoder, its TorchConv_k
+                                          (heads, in call order) heads.k
     UpBlock_i                          -> ups.i
     UpBlock_i / ConvBlock_0            -> ups.i.block
     TorchConv_0 / Conv_0  (ConvBlock)  -> conv1      (Decoder: head)
@@ -32,6 +35,11 @@ BatchNorm_0``, ``Dense_k / Dense_0``, ``conv_cls_conv / Conv_0``,
 
 Its ``class_memory`` collection loads into a memory dict of the model
 (``ScribbleVC.init_memory``).
+
+PNet2D, EffiUNet, the 3D nets and the legacy GAN map by ``zoo_key``:
+their port modules mirror flax's module tree, each kind of submodule a
+list in call order named after the kind (DHWIO kernels for the 3D nets,
+(k, k, 1, C) for depthwise convs, as flax stores them).
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ import numpy as np
 import torch
 
 _DECODERS = {"Decoder_0": "decoder", "main_decoder": "main_decoder",
-             "aux_decoder1": "aux_decoder1"}
+             "aux_decoder1": "aux_decoder1", "aux_decoder2": "aux_decoder2"}
+_DS_DECODERS = ("DecoderDS_0", "DecoderURDS_0")
 
 
 def _torch_key(path: tuple[str, ...]) -> str:
@@ -58,6 +67,12 @@ def _torch_key(path: tuple[str, ...]) -> str:
         elif p in _DECODERS:
             out.append(_DECODERS[p])
             kind = "decoder"
+        elif p in _DS_DECODERS:
+            out.append("decoder")
+            kind = "ds_decoder"
+        elif p.startswith("TorchConv_") and parent == "ds_decoder":
+            out += ["heads", p.split("_")[1]]
+            i += 1  # the nested Conv_0
         elif p.startswith("UpBlock_"):
             out += ["ups", p.split("_")[1]]
             kind = "up"
@@ -117,6 +132,33 @@ def scribblevc_key(path: tuple[str, ...]) -> str:
             out.append(_SVC_INDEXED[kind] + k)
         else:
             out.append(p)
+    return ".".join(out)
+
+
+_WRAPPERS = {"TorchConv", "DilatedConv", "Conv3", "_Conv"}
+_INDEXED = re.compile(r"^(.+)_(\d+)$")
+
+
+def _snake(kind: str) -> str:
+    return re.sub(r"(?<=[a-z0-9])(?=[A-Z])", "_", kind).strip("_").lower()
+
+
+def zoo_key(path: tuple[str, ...]) -> str:
+    """The renaming of PNet2D, EffiUNet, the 3D nets and the legacy GAN,
+    whose port modules hold their submodules in lists named after flax's
+    module kinds, in flax's call order: ``Kind_k`` -> ``kind.k`` (snake
+    case: PNetBlock_2 -> pnet_block.2, BatchNorm_1 -> batch_norm.1,
+    UnetUp3CT_0 -> unet_up3_ct.0, _Conv_3 -> conv.3); the flax conv inside
+    a wrapper scope (TorchConv_k / Conv_0, DilatedConv_k / Conv_0, Conv3_k
+    / Conv_0, _Conv_k / Conv_0) is that one module of the port."""
+    out: list[str] = []
+    for i, p in enumerate(path):
+        m = _INDEXED.match(p)
+        if (p == "Conv_0" and i > 0
+                and (_INDEXED.match(path[i - 1]) or [None, None])[1]
+                in _WRAPPERS):
+            continue
+        out += [_snake(m[1]), m[2]] if m else [p]
     return ".".join(out)
 
 
