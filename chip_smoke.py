@@ -118,7 +118,8 @@ failure:
    --model pnet (batch 12): one augment launch a step, finite losses,
    ms/step and peak GB; the test command with --model unet_ds /
    unet_cct_3h on checkpoints carrying phase 5's trained UNet, and
-   test_scribblevc ACDC's scoring on phase 3's ScribbleVC checkpoint: the
+   test_scribblevc ACDC's scoring on phase 3's ScribbleVC checkpoint and
+   on a copy whose heads are shifted so that it predicts foreground: the
    per-class Dice equal to the validation's (difference 0.0).
 
 Output: detail lines, the entry points' line (entry-points: steps,
@@ -2113,11 +2114,18 @@ def zoo_svc_test(svc_run, val, dev="cuda"):
     score_scribblevc) on the ScribbleVC run's last checkpoint, over the
     volumes that run validated: per-class Dice equal to the select rule's
     validation (difference 0.0); a phantom volume holds every class, so
-    the validation's NaN-aware Dice is the plain one."""
+    the validation's NaN-aware Dice is the plain one. A 10-step run
+    predicts background everywhere, so the check repeats on a checkpoint
+    whose decisions are not (_svc_shifted), validated here as the
+    Trainer validates and scored by the command's path: Dice equal, and
+    above 0 for some class."""
     import numpy as np
 
     from wsl4mis_torch import cli
+    from wsl4mis_torch.engine.methods.scribblevc import mean_softmax_decision
     from wsl4mis_torch.eval.infer import load_scribblevc, score_scribblevc
+    from wsl4mis_torch.eval.val2d import VolumePredictor, evaluate_fold
+    from wsl4mis_torch.utils.checkpoint import save_model_checkpoint
 
     snap = svc_run["snapshot"]
     args = cli.scribblevc_test_parser("ACDC").parse_args([
@@ -2136,7 +2144,58 @@ def zoo_svc_test(svc_run, val, dev="cuda"):
     expect(rec["dice_err"] == 0.0,
            f"test_scribblevc: Dice {avg[:, 0]} != select validation's "
            f"{want}")
+
+    _svc_shifted(model, memory, val, dev)
+    select = VolumePredictor(model, (HW, HW), device=dev,
+                             decision_fn=mean_softmax_decision,
+                             forward_kwargs={"use_class_rep": False})
+    val_metrics = evaluate_fold(select, list(val), args.num_classes,
+                                nan_aware=True, variables={"memory": memory})
+    shifted = os.path.join(os.path.dirname(path), "zoo_shifted.pth")
+    state = _as_state(model)
+    state.extra = {"class_memory": memory}
+    save_model_checkpoint(shifted, state, eval_extra=("class_memory",))
+    model, memory = load_scribblevc(shifted, args.num_classes,
+                                    args.compute_dtype, args.device)
+    avg = score_scribblevc(cli.scribblevc_inference_config(args), model,
+                           memory, list(val))
+    rec["shifted"] = {"metrics": avg.tolist(),
+                      "val_dice": val_metrics[:, 0].tolist(),
+                      "dice_err": float(np.abs(avg[:, 0]
+                                               - val_metrics[:, 0]).max())}
+    expect(rec["shifted"]["dice_err"] == 0.0 and avg[:, 0].max() > 0,
+           f"test_scribblevc, shifted heads: Dice {avg[:, 0]} against "
+           f"the validation's {val_metrics[:, 0]}")
     return rec
+
+
+def _svc_shifted(model, memory, val, dev):
+    """Make a ScribbleVC's mean-softmax decision mix the classes, in place:
+    the conv decoder's head zeroed (its softmax uniform, so the decision
+    is the transformer head's argmax), and the transformer head's class
+    biases moved by the median over `val`'s pixels of each class's logit
+    margin over background."""
+    import torch
+
+    from wsl4mis_torch.engine.methods.scribblevc import mean_softmax_decision
+    from wsl4mis_torch.eval.val2d import VolumePredictor
+
+    outs = []
+
+    def grab(out):
+        outs.append(out[1])
+        return mean_softmax_decision(out)
+
+    with torch.no_grad():
+        model.seg_head.kernel.zero_()
+        model.seg_head.bias.zero_()
+        VolumePredictor(model, (HW, HW), device=dev, decision_fn=grab,
+                        forward_kwargs={"use_class_rep": False}
+                        ).predict_volumes([v["image"] for v in val],
+                                          {"memory": memory})
+        logits = torch.cat(outs).flatten(0, 2)
+        margin = (logits - logits[:, :1]).median(0).values
+        model.trans_head.bias -= margin.to(model.trans_head.bias.dtype)
 
 
 def zoo_phase(seed, data, scribbles, val, card, unet_path, svc_run,
@@ -2174,7 +2233,8 @@ def zoo_phase(seed, data, scribbles, val, card, unet_path, svc_run,
                        if k in r} for r in out["train"]],
             "test_dice_err": {r["model"]: r["dice_err"]
                               for r in out["inference"]},
-            "test_scribblevc_dice_err": out["svc_test"]["dice_err"]}
+            "test_scribblevc_dice_err": out["svc_test"]["dice_err"],
+            "test_scribblevc_shifted": out["svc_test"]["shifted"]}
     print("zoo " + json.dumps(line), flush=True)
     return out
 

@@ -813,7 +813,9 @@ def test_zoo_phase_runs_on_the_cpu(narrow_zoo, tmp_path):
     multi-head UNets' wrapper calls of a forward + backward equal to
     fwd_bwd_counts, the train command on pnet / efficient_unet (one with
     --encoder_weights) and pce on pnet with one augment a step, the test
-    command's and test_scribblevc's Dice equal to their validations'.
+    command's and test_scribblevc's Dice equal to their validations' (the
+    latter also on the checkpoint with shifted heads, where its Dice is
+    not 0).
     The checkpoints it reads stand in for phases 3 and 5's: a narrow UNet
     and a narrow bf16 ScribbleVC (the test command's compute dtype) with
     its select-rule validation."""
@@ -863,6 +865,8 @@ def test_zoo_phase_runs_on_the_cpu(narrow_zoo, tmp_path):
             r["launches"].values()) == 2
     assert [r["dice_err"] for r in out["inference"]] == [0.0, 0.0]
     assert out["svc_test"]["dice_err"] == 0.0
+    shifted = out["svc_test"]["shifted"]
+    assert shifted["dice_err"] == 0.0 and max(shifted["val_dice"]) > 0
 
 
 def test_zoo_counts_follow_the_model_shape():

@@ -127,12 +127,22 @@ def test_bridge_covers_every_entry(attention):
     assert all(sd[k].shape == v.shape for k, v in own.items())
 
 
+_EVAL = {}
+
+
+def _jax_eval(attention=None):
+    """The JAX EffiUNet-b0's eval logits on _x() (jitted), once."""
+    if attention not in _EVAL:
+        jm = _jax_model(attention=attention)
+        _EVAL[attention] = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+            _variables(attention=attention), jnp.asarray(_x()))
+    return _EVAL[attention]
+
+
 @pytest.mark.parametrize("attention", [None, "scse"])
 def test_eval_logits_match(attention):
     v = _variables(attention=attention)
-    jm = _jax_model(attention=attention)
-    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
-        v, jnp.asarray(_x()))
+    want = _jax_eval(attention)
     with torch.no_grad():
         got = _port_model(v, attention=attention)(torch.from_numpy(_x()),
                                                   train=False)
@@ -351,3 +361,26 @@ def test_train_command_starts_from_encoder_weights(tmp_path):
     unet, _ = make_model_and_state(TrainConfig(
         model="unet", device="cpu", encoder_weights=port_file))
     assert "encoder.blocks.0.conv1.kernel" in unet.state_dict()
+
+
+def test_jax_inference_checkpoint_loads(tmp_path):
+    """The JAX package's inference checkpoint of an EffiUNet-b0 loads
+    through the port's load_model_checkpoint (the test command's reader):
+    the step, and the eval logits within 1e-5 of the largest."""
+    import types
+
+    from wsl4mis_tpu.utils.checkpoint import save_model_checkpoint
+    from wsl4mis_torch.utils.checkpoint import load_model_checkpoint
+
+    v = _variables()
+    path = str(tmp_path / "efficient_unet_best_model.pth")
+    save_model_checkpoint(path, types.SimpleNamespace(
+        params=v["params"], batch_stats=v["batch_stats"], step=3,
+        extra=None))
+    port = net_factory("efficient_unet", 4, dtype=torch.float32,
+                       encoder_name="efficientnet-b0")
+    assert load_model_checkpoint(path, port) == 3
+    want = _jax_eval()
+    with torch.no_grad():
+        got = port(torch.from_numpy(_x()), train=False)
+    assert _rel(got, want) <= EVAL_RTOL

@@ -251,7 +251,7 @@ def test_kaiming_init_of_the_3d_convs():
     k = model.vox_rex[0].conv3[0].kernel.detach()
     assert k.shape == (3, 3, 3, 64, 64)
     assert abs(float(k.std()) / math.sqrt(2.0 / (27 * 64)) - 1) < 0.02
-    assert float(model.conv3[0].bias.abs().max()) == 0.0
+    assert float(model.conv3[0].bias.detach().abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("scheme", ["normal", "xavier", "kaiming"])

@@ -140,10 +140,20 @@ def test_bridge_covers_every_entry():
                    for k, v in model.state_dict().items()), name
 
 
+_EVAL = {}
+
+
+def _jax_eval(name):
+    """The JAX model's eval outputs on _x(), once a name."""
+    if name not in _EVAL:
+        _EVAL[name] = _tuple(_jax_model(name).apply(
+            _variables(name), jnp.asarray(_x()), train=False))
+    return _EVAL[name]
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_eval_logits_match(name):
-    want = _tuple(_jax_model(name).apply(_variables(name), jnp.asarray(_x()),
-                                         train=False))
+    want = _jax_eval(name)
     with torch.no_grad():
         got = _tuple(_port_model(name)(torch.from_numpy(_x()), train=False))
     assert len(got) == len(want) == MODEL_NUM_OUTPUTS[name]
@@ -383,3 +393,28 @@ def test_measure_fwd_bwd_time_and_trace(tmp_path):
         with torch.no_grad():
             model(x, train=False)
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_jax_inference_checkpoint_loads(name, tmp_path):
+    """The JAX package's inference checkpoint of each model (its
+    save_model_checkpoint: params, batch_stats, step) loads through the
+    port's load_model_checkpoint, as the test command reads it: the
+    step, and every head's eval logits within 1e-5 of the largest."""
+    import types
+
+    from wsl4mis_tpu.utils.checkpoint import save_model_checkpoint
+    from wsl4mis_torch.utils.checkpoint import load_model_checkpoint
+
+    v = _variables(name)
+    path = str(tmp_path / f"{name}_best_model.pth")
+    save_model_checkpoint(path, types.SimpleNamespace(
+        params=v["params"], batch_stats=v["batch_stats"], step=7,
+        extra=None))
+    port = net_factory(name, 4, dtype=torch.float32, **_port_kwargs(name))
+    assert load_model_checkpoint(path, port) == 7
+    want = _jax_eval(name)
+    with torch.no_grad():
+        got = _tuple(port(torch.from_numpy(_x()), train=False))
+    for g, w in zip(got, want):
+        _rel_close(g, w, EVAL_RTOL)
