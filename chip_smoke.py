@@ -121,12 +121,38 @@ failure:
    test_scribblevc ACDC's scoring on phase 3's ScribbleVC checkpoint and
    on a copy whose heads are shifted so that it predicts foreground: the
    per-class Dice equal to the validation's (difference 0.0).
+7. Resuming a JAX run (under the train command's --deterministic 1 and
+   PyTorch's deterministic algorithms, without which ScribbleVC's steps
+   do not repeat bit for bit: the index_add_ of index_select's gradient
+   accumulates with atomics on the card):
+   one method per layout of the JAX package's latest_full.ckpt at full
+   width and its cell's batch: fully_supervised (batch 24), uamt (EMA
+   params), deep_adversarial (the discriminator and its Adam), s2l (its
+   weight buffer, on 1100 phantoms: (1100, 256, 256, 4) f32 is 1.07 GiB,
+   written as flax's chunks) at batch 12 and scribblevc (AdamW, the class
+   memory; batch 6). Each takes 2 steps (s2l: and a refresh sweep;
+   scribblevc: up to the step after its memory gate opens), writes
+   save_jax_train_state, restores it into a fresh bundle of another seed
+   through restore_train_state (which must take the JAX format): every
+   leaf bit-equal (parameters, BN statistics, optimizer state, step,
+   extras); then both states take 2 more steps on the same batches and
+   (seed, step) draws, which must leave them bit-equal, and launches of
+   every run of steps must be its per-step counts. The same 2 steps run
+   twice from the file without the deterministic algorithms record how
+   far each method's steps repeat there. Then the train command (fully_supervised, batch 24)
+   runs 3 steps, its latest_full.ckpt is rewritten in the JAX layout, and
+   the command with --resume --max_iterations 7 must restore it (the log
+   names the step and the format), take exactly steps 3..6 and write its
+   checkpoints. The resume line holds the times, file sizes and peak
+   memory.
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
-model's ms and checks, the card), a per-conv table of the batch-24
-step's conv launches (conv-table lines), the per-kernel JSON line (its
-launches summed over phases 3, 5 and 6), the nvidia-smi line, and last
+model's ms and checks, the card), the resume line (resume: each layout's
+save and restore seconds, file MB, chunks, step differences, peak GB,
+the card), a per-conv table of the batch-24 step's conv launches
+(conv-table lines), the per-kernel JSON line (its launches summed over
+phases 3, 5, 6 and 7), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
 """
@@ -140,6 +166,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2239,6 +2266,330 @@ def zoo_phase(seed, data, scribbles, val, card, unet_path, svc_run,
     return out
 
 
+# ---- phase 7: resuming a JAX run's checkpoint -------------------------------
+
+RESUME_BEFORE = 2  # steps before the checkpoint (scribblevc: to its gate)
+RESUME_AFTER = 2  # steps from the written and from the restored state
+RESUME_S2L_SLICES = 1100  # s2l's (N, 256, 256, 4) f32 buffer over 1 GiB
+RESUME_CLI = (3, 4)  # the train command's run: checkpoint at N, then k steps
+
+
+def resume_runs():
+    """(method, model, batch, data kind) of the phase: one method per
+    layout of the JAX package's latest_full.ckpt, at its cell's batch."""
+    return (("fully_supervised", "unet", N, "dense"),
+            ("uamt", "unet", SEMI_N, "semi"),
+            ("deep_adversarial", "unet", SEMI_N, "semi"),
+            ("s2l", "unet", SEMI_N, "s2l"),
+            ("scribblevc", "scribblevc", SVC_N, "svc"))
+
+
+def state_leaves(state):
+    """Every leaf of a train state by path (TrainState.state_dict: step,
+    model, optimizer, extra)."""
+    out = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}/{i}", v)
+        else:
+            out[prefix] = x
+    walk("", state.state_dict())
+    return out
+
+
+def leaves_diff(a, b):
+    """(paths whose leaves differ bit for bit, the largest absolute
+    difference over the tensors)."""
+    import torch
+
+    if a.keys() != b.keys():
+        return sorted(a.keys() ^ b.keys()), math.inf
+    bad, worst = [], 0.0
+    for k, u in a.items():
+        v = b[k]
+        if isinstance(u, torch.Tensor):
+            if not torch.equal(u, v):
+                bad.append(k)
+                worst = max(worst, float((u.double() - v.double()).abs()
+                                         .max()))
+        elif u != v:
+            bad.append(k)
+            worst = math.inf
+    return bad, worst
+
+
+def _snapshot(leaves):
+    import torch
+
+    return {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in leaves.items()}
+
+
+def host_peak_gb():
+    """The process's peak resident memory so far (ru_maxrss), GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def resume_run(method, model_name, batch, data, val, seed, dev="cuda",
+               hw=HW, dtype="bfloat16"):
+    """One layout: RESUME_BEFORE steps (scribblevc: to the step after its
+    memory gate opens; s2l: a refresh sweep after them, period_iter 2),
+    save_jax_train_state, a fresh bundle (another seed) restored through
+    restore_train_state, which must take the JAX format, every leaf
+    bit-equal; then RESUME_AFTER steps from each state on the same batches
+    and (seed, step) draws (s2l: the refresh after the second): equal bit
+    for bit (under the phase's deterministic algorithms). Launches of each
+    run of steps must be their per-step counts. Then, with PyTorch's
+    deterministic algorithms off, the same steps twice from the file: how
+    far the method's steps repeat (default_mode_repeat)."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.methods.common import split_rngs
+    from wsl4mis_torch.utils import checkpoint as ck
+
+    flags = {}
+    before = RESUME_BEFORE
+    if method == "s2l":
+        flags = dict(period_iter=RESUME_BEFORE, thr_iter=RESUME_BEFORE,
+                     thr_conf=0.04)
+    if method == "scribblevc":
+        before = svc_gate_step(len(data), batch) + 1
+    snap = os.path.join(ROOT, "build", "chip_smoke", "resume", method)
+    cfg = TrainConfig(
+        method=method, model=model_name, batch_size=batch,
+        labeled_bs=batch // 2, max_iterations=100, compute_dtype=dtype,
+        snapshot_root=snap, seed=seed, device=dev, patch_size=(hw, hw),
+        sup_type=sup_type_of(method), **flags)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bundle, new_batches = method_bundle(cfg, data, val)
+    it = new_batches()
+    batches = [next(it) for _ in range(before + RESUME_AFTER)]
+    n_slices = bundle.aux["images"].shape[0]
+    per_step = per_step_counts(model_name, method)
+
+    def expected(steps, refreshes):
+        out = {k: v * steps for k, v in per_step.items()}
+        for k, v in refresh_counts(model_name, n_slices).items():
+            out[k] += v * refreshes
+        return out
+
+    def take(b, ts):
+        """Steps ts of bundle b as the Trainer runs them (its host hook
+        after each); their losses, wall seconds and launches."""
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        losses = []
+        for t in ts:
+            rngs = split_rngs(cfg.seed, b.state.step, dev)
+            losses.append(b.step_fn(b.state, batches[t], rngs, b.aux)[
+                "total_loss"])
+            if b.host_hook is not None:
+                b.host_hook(b, b.state, b.state.step)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        return [float(v) for v in losses], wall, launch_counts()
+
+    def refreshes(ts):
+        """s2l's host hook refreshes after every RESUME_BEFORE-th step."""
+        if method != "s2l":
+            return 0
+        return sum((t + 1) % RESUME_BEFORE == 0 for t in ts)
+
+    rec = {"method": method, "model": model_name, "batch": batch,
+           "slices": n_slices, "steps_before": before}
+    losses, _, counts = take(bundle, range(before))
+    expect(counts == expected(before, refreshes(range(before))),
+           f"resume {method}: launches before the checkpoint {counts}")
+    path = os.path.join(cfg.snapshot_path, "latest_full.ckpt")
+    chunked = []
+    chunk_fn = ck._chunked
+
+    def counted_chunks(x):
+        out = chunk_fn(x)
+        chunked.append(len(out["chunks"]))
+        return out
+
+    ck._chunked = counted_chunks
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        ck.save_jax_train_state(path, bundle.state)
+        rec["save_s"] = time.perf_counter() - t0
+    finally:
+        ck._chunked = chunk_fn
+    rec["file_mb"] = os.path.getsize(path) / 2 ** 20
+    rec["chunked_leaves"] = chunked
+    saved = _snapshot(state_leaves(bundle.state))
+    fresh, _ = method_bundle(cfg.replace(seed=seed + 1), data, val)
+    t0 = time.perf_counter()
+    fmt = ck.restore_train_state(path, fresh.state)
+    sync(dev)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["format"] = fmt
+    bad, _ = leaves_diff(state_leaves(fresh.state), saved)
+    rec["restored_leaves"] = len(saved)
+    rec["restore_diff"] = bad
+    expect(fmt == "jax" and not bad,
+           f"resume {method}: format {fmt}, leaves not restored: {bad[:5]}")
+    after = range(before, before + RESUME_AFTER)
+    la, wall_a, counts_a = take(bundle, after)
+    lb, wall_b, counts_b = take(fresh, after)
+    rec.update(losses_before=losses, losses_after=la, losses_resumed=lb,
+               ms_per_step=1e3 * wall_b / RESUME_AFTER,
+               launches=counts_b)
+    want = expected(RESUME_AFTER, refreshes(after))
+    expect(counts_a == want and counts_b == want,
+           f"resume {method}: launches {counts_a} / {counts_b} != {want}")
+    bad, diff = leaves_diff(state_leaves(bundle.state),
+                            state_leaves(fresh.state))
+    rec["after_diff"] = {"leaves": len(bad), "max_abs": diff}
+    expect(not bad, f"resume {method}: resumed steps differ from the "
+                    f"uninterrupted ones in {len(bad)} leaves, by {diff}")
+    # without PyTorch's deterministic algorithms: the same steps twice from
+    # the file (ScribbleVC's index_add_ accumulates with atomics)
+    torch.use_deterministic_algorithms(False)
+    try:
+        runs = []
+        for _ in range(2):
+            ck.restore_train_state(path, fresh.state)
+            take(fresh, after)
+            runs.append(_snapshot(state_leaves(fresh.state)))
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    bad, diff = leaves_diff(*runs)
+    rec["default_mode_repeat"] = {"leaves": len(bad), "max_abs": diff}
+    if dev == "cuda":
+        rec["device_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["host_peak_gb"] = host_peak_gb()
+    expect(all(math.isfinite(v) for v in la + lb),
+           f"resume {method}: losses {la} {lb}")
+    del bundle, fresh
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def resume_cli(seed, data, val, dev="cuda", hw=HW, steps=RESUME_CLI):
+    """The train command (fully_supervised, batch N) runs n steps and its
+    latest_full.ckpt is rewritten in the JAX layout; the command again
+    with --resume and --max_iterations n + k restores it (the JAX format,
+    at step n, every leaf bit-equal), takes exactly k steps and writes its
+    checkpoints."""
+    from wsl4mis_torch.utils import checkpoint as ck
+
+    n, k = steps
+    base = os.path.join(ROOT, "build", "chip_smoke", "resume", "cli")
+    shutil.rmtree(base, ignore_errors=True)
+    script = "train_fully_supervised_2D"
+    first = cli_trainer(script, entry_argv(N, n, 10 ** 9, base, seed, hw)
+                        + ["--device", dev], data, val)
+    first.train()
+    ckpt = os.path.join(first.cfg.snapshot_path, "latest_full.ckpt")
+    ck.save_jax_train_state(ckpt, first.state)
+    saved = _snapshot(state_leaves(first.state))
+    argv = entry_argv(N, n + k, 10 ** 9, base, seed, hw) + [
+        "--device", dev, "--resume"]
+    trainer = cli_trainer(script, argv, data, val)
+    bad, _ = leaves_diff(state_leaves(trainer.state), saved)
+    taken = []
+    step_fn = trainer.bundle.step_fn
+
+    def counted(state, batch, rngs, aux=None):
+        taken.append(state.step)
+        return step_fn(state, batch, rngs, aux)
+
+    trainer.bundle.step_fn = counted
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    trainer.train()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    snap = trainer.cfg.snapshot_path
+    with open(os.path.join(snap, "log.txt")) as f:
+        logged = f"{ckpt} (jax format) at step {n}" in f.read()
+    files = {name: os.path.isfile(os.path.join(snap, name))
+             for name in (f"iter_{n + k}.pth", "latest_full.ckpt")}
+    rec = {"method": "fully_supervised", "batch": N, "resumed_at": n,
+           "steps": taken, "logged": logged, "restore_diff": bad,
+           "files": files, "torch_format_after": ck._is_torch_file(ckpt),
+           "launches": counts, "wall_s": wall}
+    print(f"resume-cli: resumed at step {n} (jax format), took steps "
+          f"{taken}", flush=True)
+    expect(not bad and logged, f"resume-cli: restore {bad}, logged "
+                               f"{logged}")
+    expect(taken == list(range(n, n + k)) and trainer.state.step == n + k,
+           f"resume-cli: steps {taken}")
+    expect(all(files.values()) and rec["torch_format_after"],
+           f"resume-cli: checkpoints {files}")
+    want = {key: v * k for key, v in per_step_counts(
+        "unet", "fully_supervised").items()}
+    expect(counts == want, f"resume-cli: launches {counts} != {want}")
+    return rec
+
+
+def resume_phase(seed, data, scribbles, val, labeled, unlabeled, svc_data,
+                 card, dev="cuda", hw=HW, s2l_slices=RESUME_S2L_SLICES,
+                 dtype="bfloat16"):
+    """Phase 7: resume_run for each layout (s2l on s2l_slices scribble
+    phantoms, so that its buffer is written as flax's chunks), under the
+    train command's cuDNN setting (--deterministic 1) and PyTorch's
+    deterministic algorithms (ScribbleVC's backward holds index_add_, the
+    gradient of index_select, which accumulates with atomics on the card:
+    its steps repeat bit for bit only so; an op without a deterministic
+    implementation would warn, and the warnings are recorded); then
+    resume_cli. Prints the resume line."""
+    import warnings
+
+    import torch
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.data import synthetic_slices
+
+    t0 = time.perf_counter()
+    cli.set_deterministic(1)
+    inputs = {"dense": data, "semi": (labeled, unlabeled), "svc": svc_data,
+              "s2l": synthetic_slices(s2l_slices, (hw, hw), seed=seed + 4,
+                                      sup_type="scribble")}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = [resume_run(method, model, batch, inputs[kind], val, seed,
+                               dev, hw, dtype)
+                    for method, model, batch, kind in resume_runs()]
+            resumed = resume_cli(seed, data, val, dev, hw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = {"card": card, "runs": runs, "cli": resumed,
+           "warnings": sorted({str(w.message)[:300] for w in caught
+                               if "deterministic" in str(w.message)}),
+           "phase_s": time.perf_counter() - t0}
+    keep = ("method", "batch", "slices", "steps_before", "file_mb",
+            "chunked_leaves", "save_s", "restore_s", "restored_leaves",
+            "after_diff", "default_mode_repeat", "ms_per_step",
+            "device_peak_gb", "host_peak_gb")
+    line = {"card": card, "phase_s": out["phase_s"],
+            "runs": [{k: r[k] for k in keep if k in r} for r in runs],
+            "cli": {k: out["cli"][k] for k in ("resumed_at", "steps",
+                                               "wall_s")},
+            "warnings": out["warnings"]}
+    print("resume " + json.dumps(line), flush=True)
+    return out
+
+
 # ---- main --------------------------------------------------------------------
 
 
@@ -2652,11 +3003,15 @@ def main(argv=None):
     zoo = zoo_phase(args.seed, data, scribbles, val, card,
                     entry["runs"][0]["inference"]["path"], svc_run)
     phase_s["zoo"] = time.perf_counter() - t0 - sum(phase_s.values())
+    resume = resume_phase(args.seed, data, scribbles, val, labeled,
+                          unlabeled, svc_data, card)
+    phase_s["resume"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
-        "inference"] + [r for r in zoo["models"] if "launches" in r]
+        "inference"] + [r for r in zoo["models"] if "launches" in r] + (
+        resume["runs"] + [resume["cli"]])
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -2670,7 +3025,7 @@ def main(argv=None):
               "sass_mma": sass,
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
-              "runs": runs, "entry": entry, "zoo": zoo,
+              "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

@@ -13,6 +13,7 @@ checkpoint) runs with narrow models, from an H5 tree and from memory."""
 
 import copy
 import functools
+import math
 import os
 import shutil
 import subprocess
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from wsl4mis_torch.data import (  # noqa: E402
+    ArraySliceDataset,
     augment_device,
     synthetic_slices,
     synthetic_volumes,
@@ -43,6 +45,7 @@ from wsl4mis_torch.ops import augment as taug  # noqa: E402
 from wsl4mis_torch.ops import conv3x3 as tconv  # noqa: E402
 from wsl4mis_torch.ops import gated_crf as tgcrf  # noqa: E402
 from wsl4mis_torch.ops import maxpool as tpool  # noqa: E402
+from wsl4mis_torch.utils import checkpoint as tck  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -764,6 +767,68 @@ def test_entry_run_from_memory_on_the_cpu(narrow_entry, tmp_path):
     assert max(rec["val_dice"]) > 0  # so a best checkpoint was saved
     inf = chip_smoke.check_inference(trainer, evals, "unet", dev="cpu")
     assert inf["dice_err"] == 0.0
+
+
+def test_resume_phase_runs_on_the_cpu(narrow_entry, monkeypatch):
+    """Phase 7 on the CPU at 32x32 with narrow models (ScribbleVC's too),
+    batches of 2 (fully_supervised, the train command) and 4, and the
+    chunk threshold lowered to 4 KiB, so that s2l's 40-slice buffer is
+    written as 160 chunks: every layout takes the JAX format and restores
+    bit for bit, the resumed steps equal the uninterrupted ones with
+    their launch counts (and repeat on the CPU without the deterministic
+    algorithms too), and the train command resumes the JAX-layout file at
+    step 3 and takes exactly steps 3..6."""
+    monkeypatch.setattr(tsvc, "net_factory",
+                        functools.partial(net_factory, **SVC_NARROW))
+    monkeypatch.setattr(chip_smoke, "N", 2)
+    monkeypatch.setattr(chip_smoke, "SEMI_N", 4)
+    monkeypatch.setattr(tck, "MAX_CHUNK_BYTES", 2 ** 12)
+    data = synthetic_slices(8, (32, 32), seed=0)
+    scribbles = synthetic_slices(8, (32, 32), seed=0, sup_type="scribble")
+    val = synthetic_volumes(1, 3, 40, 48, seed=1)
+    labeled = ArraySliceDataset(data.images[:4], data.labels[:4])
+    unlabeled = ArraySliceDataset(data.images[4:], data.labels[4:])
+    svc_data = synthetic_slices(chip_smoke.SVC_SLICES, (32, 32), seed=2,
+                                sup_type="scribble")
+    out = chip_smoke.resume_phase(0, data, scribbles, val, labeled,
+                                  unlabeled, svc_data, "cpu", dev="cpu",
+                                  hw=32, s2l_slices=40)
+    runs = {r["method"]: r for r in out["runs"]}
+    assert list(runs) == [m for m, *_ in chip_smoke.resume_runs()]
+    for r in runs.values():
+        assert r["format"] == "jax" and r["restore_diff"] == []
+        assert r["after_diff"] == {"leaves": 0, "max_abs": 0.0}
+        assert r["default_mode_repeat"] == {"leaves": 0, "max_abs": 0.0}
+        assert r["restored_leaves"] > 50
+    # the buffer, the largest leaf (at 4 KiB the parameters chunk too)
+    assert max(runs["s2l"]["chunked_leaves"]) == 40 * 32 * 32 * 4 * 4 // 2 ** 12
+    assert runs["scribblevc"]["steps_before"] == 6
+    cli = out["cli"]
+    assert cli["steps"] == [3, 4, 5, 6] and cli["logged"]
+    assert cli["torch_format_after"] and all(cli["files"].values())
+    assert out["warnings"] == [] and not torch.are_deterministic_algorithms_enabled()
+
+
+def test_leaves_diff_finds_a_changed_leaf():
+    """The phase's comparison: equal trees give nothing; one flipped bit,
+    a count or a missing leaf is found."""
+    model = net_factory("unet", 4, dtype=torch.float32,
+                        features=(4, 8, 8, 16, 16))
+    state = TrainState(model=model, opt=ReferenceSGD(model.parameters(),
+                                                     0.01, 10))
+    a = chip_smoke._snapshot(chip_smoke.state_leaves(state))
+    assert chip_smoke.leaves_diff(a, chip_smoke.state_leaves(state)) == (
+        [], 0.0)
+    with torch.no_grad():
+        state.opt.momentum_buffers[3].view(-1)[0] = 1e-30
+    bad, worst = chip_smoke.leaves_diff(a, chip_smoke.state_leaves(state))
+    assert bad == ["/opt/momentum/3"] and worst == pytest.approx(1e-30)
+    state.opt.count = 1
+    assert "/opt/count" in chip_smoke.leaves_diff(
+        a, chip_smoke.state_leaves(state))[0]
+    b = dict(a)
+    b.pop("/step")
+    assert chip_smoke.leaves_diff(a, b) == (["/step"], math.inf)
 
 
 def test_main_returns_2_and_no_result_line_without_a_card(capsys):

@@ -8,12 +8,33 @@ and update t (counted from 0) uses lr = base * (1 - t/max)^0.9, computed
 in float32 as the JAX package's optax schedule does. The learning rate is
 set per update here rather than through LambdaLR, whose step count is one
 off from optax's.
+
+Each optimizer also reads and writes its state in the layout flax writes
+the optax state of the JAX package's optimizer (``optax_state`` /
+``load_optax_state``; a tuple of a chain as {"0": ..., "1": ...}, an
+EmptyState as {}, a count as a 0-d int32 array). The trees of the
+params' structure (momentum trace, Adam's moments) go through `to_tree` /
+`from_tree`, the flax bridge of ``utils.params``, with the optimizer's
+parameters named by `names`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.params import check_keys, copy_named
+
+
+def _count(n: int) -> np.ndarray:
+    return np.asarray(n, np.int32)
+
+
+def _load_count(tree, where: str) -> int:
+    count = np.asarray(tree)
+    if count.shape != ():
+        raise KeyError(f"{where}: a count of shape {count.shape}")
+    return int(count)
 
 
 def poly_lr(base_lr: float, max_iterations: int, power: float = 0.9):
@@ -64,6 +85,24 @@ class ReferenceSGD:
             for buf, saved in zip(self.momentum_buffers, state["momentum"]):
                 buf.copy_(saved)
 
+    def optax_state(self, names, to_tree) -> dict:
+        """reference_sgd's state: chain(add_decayed_weights (EmptyState),
+        chain(trace, scale_by_schedule))."""
+        trace = to_tree(dict(zip(names, self.momentum_buffers)))
+        return {"0": {}, "1": {"0": {"trace": trace},
+                               "1": {"count": _count(self.count)}}}
+
+    def load_optax_state(self, tree, names, from_tree) -> None:
+        check_keys(tree, ("0", "1"), "opt_state (SGD)")
+        check_keys(tree["0"], (), "opt_state/0 (add_decayed_weights)")
+        check_keys(tree["1"], ("0", "1"), "opt_state/1 (sgd)")
+        check_keys(tree["1"]["0"], ("trace",), "opt_state/1/0 (trace)")
+        check_keys(tree["1"]["1"], ("count",), "opt_state/1/1 (schedule)")
+        copy_named(dict(zip(names, self.momentum_buffers)),
+                   from_tree(tree["1"]["0"]["trace"]), "opt_state trace")
+        self.count = _load_count(tree["1"]["1"]["count"],
+                                 "opt_state/1/1/count")
+
 
 def adam_init(params: dict[str, torch.Tensor]) -> dict:
     """Adam's state for `params`: the update count and both moments, as
@@ -104,6 +143,28 @@ def _adam_update(p: list, g: list, mu: list, nu: list, count: int,
         torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
     torch._foreach_mul_(upd, -lr)
     torch._foreach_add_(p, upd)
+
+
+def adam_optax_state(state: dict, to_tree, chained: int = 1) -> dict:
+    """`state` (adam_init's dict, or ReferenceAdamW's moments) as flax
+    writes optax's adam (chain(scale_by_adam, scale_by_learning_rate):
+    chained = 1) or adamw (chained = 2: add_decayed_weights between)."""
+    out = {"0": {"count": _count(state["count"]), "mu": to_tree(state["mu"]),
+                 "nu": to_tree(state["nu"])}}
+    out.update({str(i + 1): {} for i in range(chained)})
+    return out
+
+
+def load_adam_optax_state(state: dict, tree, from_tree,
+                          chained: int = 1) -> None:
+    """The inverse of adam_optax_state, into `state`'s tensors in place."""
+    check_keys(tree, [str(i) for i in range(chained + 1)], "opt_state (adam)")
+    for i in range(chained):
+        check_keys(tree[str(i + 1)], (), f"opt_state/{i + 1}")
+    check_keys(tree["0"], ("count", "mu", "nu"), "opt_state/0 (scale_by_adam)")
+    for k in ("mu", "nu"):
+        copy_named(state[k], from_tree(tree["0"][k]), f"opt_state {k}")
+    state["count"] = _load_count(tree["0"]["count"], "opt_state/0/count")
 
 
 def reference_adam(params: dict[str, torch.Tensor],
@@ -165,3 +226,17 @@ class ReferenceAdamW:
                                 (self.nu, state["nu"])):
                 for buf, v in zip(bufs, saved):
                     buf.copy_(v)
+
+    def _named(self, names) -> dict:
+        return {"count": self.count, "mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu))}
+
+    def optax_state(self, names, to_tree) -> dict:
+        """optax.adamw's state: chain(scale_by_adam, add_decayed_weights,
+        scale_by_learning_rate), the last two EmptyStates."""
+        return adam_optax_state(self._named(names), to_tree, chained=2)
+
+    def load_optax_state(self, tree, names, from_tree) -> None:
+        named = self._named(names)
+        load_adam_optax_state(named, tree, from_tree, chained=2)
+        self.count = named["count"]

@@ -18,6 +18,12 @@ checkpoint. The logged LR is the optimizer's ``schedule``.
 Each step runs eagerly on cfg.device with per-step generators from
 (cfg.seed, iteration); metrics stay on the device until the logging
 cadence reads them.
+
+``cfg.resume`` continues from ``{snapshot}/latest_full.ckpt`` in either
+package's format (``utils.checkpoint.restore_train_state``), with the
+data iterator started anew, as the JAX trainer does. A JAX run continued
+here takes the port's draws from the resumed step on: JAX's PRNG streams
+have no torch counterpart.
 """
 
 from __future__ import annotations
@@ -71,9 +77,9 @@ class Trainer:
         if cfg.resume:
             ckpt = os.path.join(self.snapshot_path, "latest_full.ckpt")
             if os.path.exists(ckpt):
-                restore_train_state(ckpt, self.state)
-                logging.info("resumed from %s at step %d", ckpt,
-                             self.state.step)
+                fmt = restore_train_state(ckpt, self.state)
+                logging.info("resumed from %s (%s format) at step %d", ckpt,
+                             fmt, self.state.step)
 
     def _snapshot_code(self):
         """Copy the library into the run dir for provenance."""

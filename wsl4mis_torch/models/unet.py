@@ -298,6 +298,8 @@ class DecoderDS(nn.Module):
 
 
 class UNetDS(nn.Module):
+    flax_decoder = "DecoderDS_0"  # its decoder's flax scope (utils.params)
+
     def __init__(self, num_classes: int = 4,
                  features: Sequence[int] = DEFAULT_FEATURES,
                  dropout: Sequence[float] = DEFAULT_DROPOUT,
@@ -316,6 +318,8 @@ class UNetURDS(UNetDS):
     heads, drawn from rngs["feature_perturb"] in the JAX package's key
     order (k3, k2, k1): the channel-dropout mask, the feature-dropout cut,
     the feature noise."""
+
+    flax_decoder = "DecoderURDS_0"
 
     def forward(self, x, train: bool = False, rngs=None, draws=None):
         """draws: optional {"channel_mask" (N,1,1,C) bool, "cut" (), "noise"

@@ -40,11 +40,20 @@ PNet2D, EffiUNet, the 3D nets and the legacy GAN map by ``zoo_key``:
 their port modules mirror flax's module tree, each kind of submodule a
 list in call order named after the kind (DHWIO kernels for the 3D nets,
 (k, k, 1, C) for depthwise convs, as flax stores them).
+
+The way back (``flax_naming``, ``to_flax``, ``to_flax_variables``), for
+writing the port's state in the JAX package's layout: each renaming has
+its inverse (``torch_path``, ``scribblevc_path``, ``zoo_path``), and every
+path it gives is held to the forward renaming. UNet_DS and UNet_URDS name
+their decoder's flax scope (``flax_decoder``); ``zoo_path`` knows the
+module kinds of the 2D zoo (PNet2D, EffiUNet), the models a train state
+holds.
 """
 
 from __future__ import annotations
 
 import re
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -162,6 +171,143 @@ def zoo_key(path: tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+_DECODER_NAMES = {v: k for k, v in _DECODERS.items() if k != "Decoder_0"}
+
+
+def torch_path(name: str, decoder: str = "Decoder_0") -> tuple[str, ...]:
+    """The flax path that ``_torch_key`` renames to `name`; `decoder` is
+    the model's decoder scope (Decoder_0, DecoderDS_0 or DecoderURDS_0)."""
+    t = name.split(".")
+    out: list[str] = []
+    i = 0
+    while i < len(t):
+        p = t[i]
+        if p == "encoder":
+            out.append("Encoder_0")
+        elif p == "decoder":
+            out.append(decoder)
+        elif p in _DECODER_NAMES:
+            out.append(p)
+        elif p in ("blocks", "ups", "heads", "convs") and i + 1 < len(t):
+            k = t[i + 1]
+            out += {"blocks": [f"ConvBlock_{k}"], "ups": [f"UpBlock_{k}"],
+                    "heads": [f"TorchConv_{k}", "Conv_0"],
+                    "convs": [f"_Conv4x4s2_{k}", "Conv_0"]}[p]
+            i += 1
+        elif p == "block":
+            out.append("ConvBlock_0")
+        elif p == "head":
+            out += ["TorchConv_0", "Conv_0"]
+        elif p in ("conv1", "conv2"):
+            out += [f"TorchConv_{int(p[-1]) - 1}", "Conv_0"]
+        elif p == "up":
+            out += ["TorchConvTranspose_0", "ConvTranspose_0"]
+        elif p in ("bn1", "bn2"):
+            out.append(f"BatchNorm_{int(p[-1]) - 1}")
+        elif p == "dense":
+            out.append("Dense_0")
+        else:
+            out.append(p)
+        i += 1
+    return tuple(out)
+
+
+_SVC_TOP_NAMES = {v: k for k, v in _SVC_TOP.items()}
+_SVC_KINDS = {v: k for k, v in _SVC_NAMES.items()}
+_SVC_NUMBERED = re.compile(r"^(conv|bn|dense|norm)(\d+)$")
+
+
+def scribblevc_path(name: str) -> tuple[str, ...]:
+    """The flax path that ``scribblevc_key`` renames to `name`: convk, bnk
+    and densek are wrapper scopes (Conv_k / Conv_0, BN_k / BatchNorm_0,
+    Dense_k / Dense_0) except in a UNetUpBilinear, whose Conv_k and
+    BatchNorm_k are flax's own modules."""
+    t = name.split(".")
+    if ".".join(t[:2]) in _SVC_TOP_NAMES:
+        return (_SVC_TOP_NAMES[".".join(t[:2])], *t[2:])
+    if t[0] in _SVC_TOP_NAMES:
+        return (_SVC_TOP_NAMES[t[0]], *t[1:])
+    out: list[str] = []
+    in_up = False
+    i = 0
+    while i < len(t):
+        p = t[i]
+        m = _SVC_NUMBERED.match(p)
+        if p == "ups" and i + 1 < len(t):
+            out.append(f"UNetUpBilinear_{t[i + 1]}")
+            in_up = True
+            i += 1
+        elif p in _SVC_KINDS:
+            out.append(_SVC_KINDS[p])
+        elif p == "conv_cls_conv":
+            out += [p, "Conv_0"]
+        elif p == "trans_cls_head":
+            out += [p, "Dense_0"]
+        elif m and m[1] == "norm":
+            out.append(f"LayerNorm_{m[2]}")
+        elif m and in_up:
+            out.append({"conv": "Conv", "bn": "BatchNorm"}[m[1]] + f"_{m[2]}")
+        elif m:
+            kind, inner = {"conv": ("Conv", "Conv_0"),
+                           "bn": ("BN", "BatchNorm_0"),
+                           "dense": ("Dense", "Dense_0")}[m[1]]
+            out += [f"{kind}_{m[2]}", inner]
+        else:
+            out.append(p)
+        i += 1
+    return tuple(out)
+
+
+# the flax module kinds of the 2D zoo's zoo_key models (PNet2D, EffiUNet)
+_ZOO_KINDS = {_snake(k): k for k in (
+    "PNetBlock", "DilatedConv", "TorchConv", "BatchNorm", "Conv",
+    "EfficientNetEncoder", "MBConv", "DecoderBlock")}
+
+
+def zoo_path(name: str) -> tuple[str, ...]:
+    """The flax path that ``zoo_key`` renames to `name` (a module of the
+    2D zoo: ``kind.k`` -> ``Kind_k``, and a wrapper kind's inner Conv_0)."""
+    t = name.split(".")
+    out: list[str] = []
+    i = 0
+    while i < len(t):
+        p = t[i]
+        if i + 1 < len(t) and t[i + 1].isdigit():
+            if p not in _ZOO_KINDS:
+                raise KeyError(f"{name!r}: no flax module kind for {p!r}")
+            kind = _ZOO_KINDS[p]
+            out.append(f"{kind}_{t[i + 1]}")
+            if kind in _WRAPPERS:
+                out.append("Conv_0")
+            i += 1
+        else:
+            out.append(p)
+        i += 1
+    return tuple(out)
+
+
+class FlaxNaming(NamedTuple):
+    """A model's renaming both ways: key (flax path -> state_dict name)
+    and path (its inverse)."""
+
+    key: Callable[[tuple[str, ...]], str]
+    path: Callable[[str], tuple[str, ...]]
+
+
+def flax_naming(model: torch.nn.Module | None = None) -> FlaxNaming:
+    """The renaming of `model` (None: the UNet / FCDiscriminator one)."""
+    key = getattr(model, "flax_key", None)
+    if key is None:
+        decoder = getattr(model, "flax_decoder", "Decoder_0")
+        return FlaxNaming(_torch_key,
+                          lambda name: torch_path(name, decoder))
+    inverse = {scribblevc_key: scribblevc_path, zoo_key: zoo_path}
+    if key not in inverse:
+        raise KeyError(f"{type(model).__name__}: no inverse of its flax "
+                       f"renaming {key.__name__}")
+    return FlaxNaming(key, inverse[key])
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -174,13 +320,71 @@ def from_flax(variables_np, key=None) -> dict[str, torch.Tensor]:
     """flax {"params", "batch_stats"} tree of numpy arrays -> state_dict,
     each flax path renamed by `key` (default: the UNet / UNetCCT /
     FCDiscriminator renaming)."""
-    key = key or _torch_key
     state = {}
     for collection in ("params", "batch_stats"):
-        for path, value in _flatten(dict(variables_np.get(collection, {}))):
-            state[key(path)] = torch.from_numpy(
-                np.array(value, dtype=np.float32))
+        state.update(named_from_flax(variables_np.get(collection, {}), key))
     return state
+
+
+def named_from_flax(tree, key=None) -> dict[str, torch.Tensor]:
+    """One collection's tree (params, or a tree of the params' structure:
+    a momentum trace, Adam's moments, EMA params) -> f32 tensors by
+    state_dict name."""
+    key = key or _torch_key
+    return {key(path): torch.from_numpy(np.array(value, dtype=np.float32))
+            for path, value in _flatten(dict(tree or {}))}
+
+
+def to_flax(named: dict[str, torch.Tensor],
+            naming: FlaxNaming | None = None) -> dict:
+    """Tensors by state_dict name -> a flax tree of numpy arrays (the
+    inverse of named_from_flax). A name whose flax path the forward
+    renaming does not take back to it raises KeyError naming it."""
+    naming = naming or flax_naming()
+    tree: dict = {}
+    for name, t in named.items():
+        path = naming.path(name)
+        if naming.key(path) != name:
+            raise KeyError(f"no flax path for {name!r} (tried "
+                           f"{'/'.join(path)})")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(t.detach().cpu().numpy())
+    return tree
+
+
+def to_flax_variables(model: torch.nn.Module) -> dict:
+    """The model as flax's {"params": ..., "batch_stats": ...} (its
+    parameters; its buffers, the BN running statistics)."""
+    naming = flax_naming(model)
+    return {"params": to_flax(dict(model.named_parameters()), naming),
+            "batch_stats": to_flax(dict(model.named_buffers()), naming)}
+
+
+def check_keys(tree, keys, where: str) -> None:
+    """`tree` must be a dict with exactly `keys`; else KeyError naming the
+    missing and the left-over ones."""
+    if not isinstance(tree, dict):
+        raise KeyError(f"{where}: expected a dict with {sorted(keys)}, got "
+                       f"{type(tree).__name__}")
+    missing, extra = sorted(set(keys) - tree.keys()), sorted(
+        tree.keys() - set(keys))
+    if missing or extra:
+        raise KeyError(f"{where}: missing {missing}, left over {extra}")
+
+
+@torch.no_grad()
+def copy_named(dst: dict[str, torch.Tensor], src: dict[str, torch.Tensor],
+               where: str) -> None:
+    """Copy `src` into the tensors of `dst` in place, strictly: a missing or
+    left-over name, or a shape that differs, raises KeyError naming it."""
+    check_keys(src, dst.keys(), where)
+    for k, v in dst.items():
+        if tuple(src[k].shape) != tuple(v.shape):
+            raise KeyError(f"{where}: {k} has shape {tuple(src[k].shape)}, "
+                           f"not {tuple(v.shape)}")
+        v.copy_(src[k])
 
 
 def load_flax_variables(model: torch.nn.Module, variables_np,
