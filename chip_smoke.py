@@ -122,9 +122,7 @@ failure:
    on a copy whose heads are shifted so that it predicts foreground: the
    per-class Dice equal to the validation's (difference 0.0).
 7. Resuming a JAX run (under the train command's --deterministic 1 and
-   PyTorch's deterministic algorithms, without which ScribbleVC's steps
-   do not repeat bit for bit: the index_add_ of index_select's gradient
-   accumulates with atomics on the card):
+   PyTorch's deterministic algorithms):
    one method per layout of the JAX package's latest_full.ckpt at full
    width and its cell's batch: fully_supervised (batch 24), uamt (EMA
    params), deep_adversarial (the discriminator and its Adam), s2l (its
@@ -138,21 +136,40 @@ failure:
    extras); then both states take 2 more steps on the same batches and
    (seed, step) draws, which must leave them bit-equal, and launches of
    every run of steps must be its per-step counts. The same 2 steps run
-   twice from the file without the deterministic algorithms record how
-   far each method's steps repeat there. Then the train command (fully_supervised, batch 24)
+   twice from the file without the deterministic algorithms must repeat
+   bit for bit too (interp_axis's backward sums in a fixed order, so
+   ScribbleVC's step is a function of its inputs in PyTorch's default
+   mode). Then the train command (fully_supervised, batch 24)
    runs 3 steps, its latest_full.ckpt is rewritten in the JAX layout, and
    the command with --resume --max_iterations 7 must restore it (the log
    names the step and the format), take exactly steps 3..6 and write its
    checkpoints. The resume line holds the times, file sizes and peak
    memory.
+8. Data parallelism (``wsl4mis_torch.parallel``; phases 1-7 run with no
+   process group and must have issued no collective), each step held to the
+   single-process step at the global batch from the same state: (a) two
+   ranks, both on cuda:0 over gloo (NCCL takes one rank a card), in
+   spawned processes, in f32 at full width: fully_supervised (batch 24),
+   dmpls (6), uamt (12), s2l (12, its refresh sweep after the last step)
+   and scribblevc (6, its memory gate open), 2 steps each: every step
+   within tests/test_sharding.py's tolerances (dp_compare), the two ranks'
+   states bit-equal after every step, each rank's launches its steps'
+   counts; (b) fully_supervised at batch 24 in bf16 through the library
+   API in a group of one NCCL rank, every collective an NCCL call: bit for
+   bit the run with no group, its ms/step beside that run's; (c) with more
+   than one card, min(4, cards) NCCL ranks, one a card, on
+   fully_supervised against the single process, else a line saying it was
+   not run. The data_parallel line holds each case's largest difference a
+   leaf class, ms/step, collectives a step and the phase's seconds.
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
 model's ms and checks, the card), the resume line (resume: each layout's
 save and restore seconds, file MB, chunks, step differences, peak GB,
-the card), a per-conv table of the batch-24 step's conv launches
-(conv-table lines), the per-kernel JSON line (its launches summed over
-phases 3, 5, 6 and 7), the nvidia-smi line, and last
+the card), the data_parallel line, a per-conv table of the batch-24
+step's conv launches (conv-table lines), the per-kernel JSON line (its
+launches summed over phases 3, 5, 6, 7 and 8), the nvidia-smi line, and
+last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
 """
@@ -2347,8 +2364,8 @@ def resume_run(method, model_name, batch, data, val, seed, dev="cuda",
     and (seed, step) draws (s2l: the refresh after the second): equal bit
     for bit (under the phase's deterministic algorithms). Launches of each
     run of steps must be their per-step counts. Then, with PyTorch's
-    deterministic algorithms off, the same steps twice from the file: how
-    far the method's steps repeat (default_mode_repeat)."""
+    deterministic algorithms off, the same steps twice from the file must
+    repeat bit for bit too (default_mode_repeat)."""
     import torch
 
     from wsl4mis_torch.engine.config import TrainConfig
@@ -2456,7 +2473,7 @@ def resume_run(method, model_name, batch, data, val, seed, dev="cuda",
     expect(not bad, f"resume {method}: resumed steps differ from the "
                     f"uninterrupted ones in {len(bad)} leaves, by {diff}")
     # without PyTorch's deterministic algorithms: the same steps twice from
-    # the file (ScribbleVC's index_add_ accumulates with atomics)
+    # the file
     torch.use_deterministic_algorithms(False)
     try:
         runs = []
@@ -2468,6 +2485,8 @@ def resume_run(method, model_name, batch, data, val, seed, dev="cuda",
         torch.use_deterministic_algorithms(True, warn_only=True)
     bad, diff = leaves_diff(*runs)
     rec["default_mode_repeat"] = {"leaves": len(bad), "max_abs": diff}
+    expect(not bad, f"resume {method}: two default-mode runs of the same "
+                    f"steps differ in {len(bad)} leaves, by {diff}")
     if dev == "cuda":
         rec["device_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     rec["host_peak_gb"] = host_peak_gb()
@@ -2546,11 +2565,9 @@ def resume_phase(seed, data, scribbles, val, labeled, unlabeled, svc_data,
     """Phase 7: resume_run for each layout (s2l on s2l_slices scribble
     phantoms, so that its buffer is written as flax's chunks), under the
     train command's cuDNN setting (--deterministic 1) and PyTorch's
-    deterministic algorithms (ScribbleVC's backward holds index_add_, the
-    gradient of index_select, which accumulates with atomics on the card:
-    its steps repeat bit for bit only so; an op without a deterministic
-    implementation would warn, and the warnings are recorded); then
-    resume_cli. Prints the resume line."""
+    deterministic algorithms (an op without a deterministic implementation
+    would warn, and the warnings are recorded); then resume_cli. Prints the
+    resume line."""
     import warnings
 
     import torch
@@ -2587,6 +2604,565 @@ def resume_phase(seed, data, scribbles, val, labeled, unlabeled, svc_data,
                                                "wall_s")},
             "warnings": out["warnings"]}
     print("resume " + json.dumps(line), flush=True)
+    return out
+
+
+# ---- phase 8: data parallel -------------------------------------------------
+
+
+# (method, model, batch, data kind) of the two-rank cells
+DP_CELLS = (("fully_supervised", "unet", N, "dense"),
+            ("dmpls", "unet_cct", DMPLS_N, "scribble"),
+            ("uamt", "unet", SEMI_N, "semi"),
+            ("s2l", "unet", SEMI_N, "s2l"),
+            ("scribblevc", "scribblevc", SVC_N, "svc"))
+DP_STEPS = 2
+DP_SLICES = 48  # phantoms a cell (semi: half labeled); scribblevc: SVC_SLICES
+DP_NCCL_STEPS = 10  # steps of the world-size-1 NCCL run and of its twin
+DP_MAX_CARDS = 4
+# tests/test_sharding.py's tolerances: parameters (and the method's extra
+# state) to 1e-4 under SGD; under Adam to about 2.2 lr an update, since
+# Adam turns a reassociation-flipped sign of a near-zero gradient into a
+# full +-lr step (its 1.2e-3 and 3e-4 are for one step; a conv bias
+# before BN, whose gradient is rounding noise, moved 1.4e-3 in two
+# ScribbleVC steps on the CPU); the loss relative; the class memory loose
+# (its batch contraction's intermediates reach ~1e4) under a gate-flip
+# ceiling; its gate decisions exact. BN running statistics relative to
+# the layer's second moment (var + mean^2, the scale at which the
+# one-pass variance rounds). Adam's parameters cannot tell a wrong
+# gradient (two gradients put them at most 2 lr apart), so the first
+# moments, linear in the gradient, are held in norm (dp_moments): the
+# step's change of the moment within DP_MOMENT_RTOL of the single
+# process's change. Measured on the CPU at 64x64 (narrow models, batch
+# 8): sound runs at W = 2 and 4 <= 1.4e-6 for the UNet methods (pce_tv
+# 2.7e-4, its |.|'s kink) and DAN's discriminator, <= 1.6e-2 for
+# ScribbleVC, whose first step from its initial state is that sensitive
+# in one process too (1 against 3 CPU threads: 8.9e-3); planted faults:
+# every gradient summed, not averaged, 1.0 (W = 2); ScribbleVC's memory
+# sums without their all-reduce backward 6.2e-2 (W = 2), 9.3e-2 (W = 4),
+# with its parameters exactly as close as in the sound run. On an NVIDIA
+# H100 80GB HBM3 (700 W), phase 8's cells at full width: sound 2.5e-5 to
+# 2.1e-4, ScribbleVC 1.3e-2; summed 1.1 and 1.0; the memory fault 7.1e-2
+# and 1.5e-1 (steps 0, 1).
+DP_SGD_ATOL = 1e-4
+DP_ADAM_ATOL = {"scribblevc": 1.2e-3, "deep_adversarial": 3e-4}  # a step
+DP_LOSS_RTOL = 1e-4
+DP_MEMORY_ATOL, DP_GATE_FLIP = 5e-2, 0.5
+DP_STATE_RTOL = 1e-4
+DP_MOMENT_RTOL = {None: 1e-2, "scribblevc": 3e-2}
+DP_EXACT_METRICS = ("proto_acc_conv", "proto_acc_tran")
+
+
+def dp_cell(method, batch):
+    """(method, model, batch, data kind) of a method's cell."""
+    model = {"dmpls": "unet_cct", "scribblevc": "scribblevc"}.get(method,
+                                                                 "unet")
+    if method in SEMI:
+        kind = "semi"
+    elif method in ("s2l", "scribblevc"):
+        kind = {"s2l": "s2l", "scribblevc": "svc"}[method]
+    else:
+        kind = "scribble" if sup_type_of(method) == "scribble" else "dense"
+    return method, model, batch, kind
+
+
+def dp_data(kind, hw, seed):
+    """A cell's phantoms, made from the seed (the same in every process)."""
+    from wsl4mis_torch.data import ArraySliceDataset, synthetic_slices
+
+    if kind == "svc":
+        return synthetic_slices(SVC_SLICES, (hw, hw), seed=seed + 2,
+                                sup_type="scribble")
+    sup = "label" if kind in ("dense", "semi") else "scribble"
+    data = synthetic_slices(DP_SLICES, (hw, hw), seed=seed, sup_type=sup)
+    if kind != "semi":
+        return data
+    half = DP_SLICES // 2
+    return (ArraySliceDataset(data.images[:half], data.labels[:half]),
+            ArraySliceDataset(data.images[half:], data.labels[half:]))
+
+
+def dp_bundle(cell, spec):
+    """(cfg, bundle, the global batches) of one cell: its method's bundle
+    (method_bundle) from spec's seed, at spec's size and dtype; scribblevc
+    with its memory gate open from the first step, s2l with its
+    pseudo-label term open on its zero buffer (as tests/test_sharding.py
+    runs it: pseudo labels thresholded off a refreshed buffer flip with its
+    rounding) and a refresh sweep after the last step."""
+    from wsl4mis_torch.engine.config import TrainConfig
+
+    method, model_name, batch, kind = cell
+    hw, seed = spec["hw"], spec["seed"]
+    flags = {}
+    if method == "s2l":
+        flags = dict(period_iter=spec["steps"], thr_iter=0)
+    cfg = TrainConfig(
+        method=method, model=model_name, batch_size=batch,
+        labeled_bs=batch // 2, max_iterations=100,
+        compute_dtype=spec["dtype"], seed=seed, device=spec["device"],
+        patch_size=(hw, hw), sup_type=sup_type_of(method), **flags)
+    data = dp_data(kind, hw, seed)
+    bundle, new_batches = method_bundle(cfg, data, None)
+    if method == "scribblevc":
+        bundle.state.step = svc_gate_step(len(data), batch)
+    it = new_batches()
+    return cfg, bundle, [next(it) for _ in range(spec["steps"])]
+
+
+def dp_steps(cfg, bundle, batches, dev, before=None, after=None):
+    """The steps as the Trainer takes them (this rank's rows of each batch,
+    the host hook after each): losses, the exact metrics, wall ms a step,
+    collectives a step and the kernel launches of the steps alone.
+    before(t) / after(t, loss, metrics) run around step t, untimed and
+    uncounted."""
+    from wsl4mis_torch import parallel
+
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    mesh = parallel.current_mesh()
+    losses, metrics, calls, step_ms = [], {}, {}, []
+    reset_counts()
+    for t, batch in enumerate(batches):
+        if before is not None:
+            before(t)
+        if mesh.world_size > 1:
+            batch = parallel.shard_batch(mesh, batch, bundle.batch_parts)
+        parallel.calls.clear()
+        sync(dev)
+        t0 = time.perf_counter()
+        rngs = split_rngs(cfg.seed, bundle.state.step, dev)
+        m = bundle.step_fn(bundle.state, batch, rngs, bundle.aux)
+        if bundle.host_hook is not None:
+            bundle.host_hook(bundle, bundle.state, bundle.state.step)
+        sync(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        for k, v in parallel.calls.items():
+            calls[k] = calls.get(k, 0) + v
+        losses.append(float(m["total_loss"]))
+        exact = {k: float(m[k]) for k in DP_EXACT_METRICS if k in m}
+        for k, v in exact.items():
+            metrics.setdefault(k, []).append(v)
+        if after is not None:
+            after(t, losses[-1], exact)
+    return {"losses": losses, "metrics": metrics, "step_ms": step_ms,
+            "ms_per_step": sum(step_ms) / len(step_ms),
+            "collectives_per_step": {k: v / len(batches) for k, v in
+                                     sorted(calls.items())},
+            "launches": launch_counts()}
+
+
+def dp_leaf_class(path, params):
+    """A state leaf's class: params, bn_stats, opt, ema, disc, disc_opt,
+    weight (s2l's buffer), memory, gate (the memory's 'initialized') or
+    count (the step)."""
+    parts = path.split("/")[1:]
+    if parts[0] == "model":
+        return "params" if parts[1] in params else "bn_stats"
+    if parts[0] == "opt":
+        return "opt"
+    if parts[0] == "extra" and len(parts) > 1:
+        if parts[-1] == "initialized":
+            return "gate"
+        return {"ema_params": "ema", "disc_params": "disc",
+                "disc_opt_state": "disc_opt", "weight": "weight"}.get(
+            parts[1], "memory")
+    return "count"
+
+
+def dp_compare(method, got, want, params, before=None):
+    """({leaf class: the largest absolute difference}, failures) of a
+    state's leaves (state_leaves) after a step against the single-process
+    ones after the same step from the same state `before`, by the
+    tolerances above; `params`: the model's parameter names. The optimizer
+    moments (opt, disc_opt) are held by dp_moments where `before` is
+    given, else recorded."""
+    import torch
+
+    if got.keys() != want.keys():
+        return {}, [f"leaves {sorted(got.keys() ^ want.keys())[:5]}"]
+    atol = DP_ADAM_ATOL.get(method, DP_SGD_ATOL)
+    diff, fails = {}, []
+    for path, a in got.items():
+        b = want[path]
+        cls = dp_leaf_class(path, params)
+        if not isinstance(a, torch.Tensor):
+            d = 0.0 if a == b else math.inf
+            ok = d == 0.0
+        else:
+            a, b = a.double(), b.double()
+            d = float((a - b).abs().max()) if a.numel() else 0.0
+            if cls in ("params", "ema", "disc", "weight"):
+                ok = d <= atol
+            elif cls == "memory":
+                ok = d < DP_GATE_FLIP and d <= DP_MEMORY_ATOL
+            elif cls == "gate":
+                ok = d == 0.0
+            elif cls == "bn_stats":
+                layer = path.rsplit(".", 1)[0]
+                second = (want[layer + ".var"].double()
+                          + want[layer + ".mean"].double() ** 2)
+                ok = bool(((a - b).abs() <= DP_STATE_RTOL
+                           * second.clamp(min=1.0)).all())
+            else:  # opt, disc_opt: dp_moments
+                ok = True
+        diff[cls] = max(diff.get(cls, 0.0), d)
+        if not ok:
+            fails.append(f"{path} ({cls}) off by {d}")
+    if before is not None:
+        rel, moment_fails = dp_moments(method, got, want, before, params)
+        diff.update(rel)
+        fails += moment_fails
+    return diff, fails
+
+
+def dp_moments(method, got, want, before, params):
+    """({"opt/mu": r, ...}, failures): for each optimizer moment (SGD's
+    momentum, Adam's mu and nu; the model's, and DAN's discriminator's in
+    disc_opt), r = ||got - want|| / ||want - before|| over all its
+    leaves: the step's change of the moment against the single process's
+    change. A first moment is linear in the gradient, so a gradient off by
+    a factor, or missing a path, moves r by that share, where Adam's
+    parameters hide it (its first update is lr * sign(g)); the few
+    elements that reassociation moves across a kink barely move the norm.
+    The first moments are held to DP_MOMENT_RTOL, nu recorded."""
+    import torch
+
+    num, den = {}, {}
+    for path, a in got.items():
+        cls = dp_leaf_class(path, params)
+        if cls not in ("opt", "disc_opt") or not isinstance(
+                a, torch.Tensor) or not a.is_floating_point():
+            continue
+        parts = path.split("/")
+        kind = cls + "/" + parts[parts.index(
+            "opt" if cls == "opt" else "disc_opt_state") + 1]
+        b, b0 = want[path].double(), before[path].double()
+        num[kind] = num.get(kind, 0.0) + float(((a.double() - b) ** 2).sum())
+        den[kind] = den.get(kind, 0.0) + float(((b - b0) ** 2).sum())
+    rel = {k: math.sqrt(num[k] / den[k]) if den[k] else (
+        0.0 if num[k] == 0 else math.inf) for k in num}
+    rtol = DP_MOMENT_RTOL.get(method, DP_MOMENT_RTOL[None])
+    return rel, [f"{k} changed {r} off the single process's change "
+                 f"(relative; limit {rtol})" for k, r in rel.items()
+                 if k.split("/")[1] != "nu" and not r <= rtol]
+
+
+def dp_check_step(method, t, loss, exact, ref, leaves, params):
+    """Step t of a rank (its loss, its exact metrics, the state leaves
+    after it) against the single-process step t from the same state: the
+    loss relative, the metrics exactly, every leaf by dp_compare.
+    (differences, failures)."""
+    loss_rel = abs(loss - ref["losses"][t]) / max(1.0, abs(ref["losses"][t]))
+    fails = [] if loss_rel < DP_LOSS_RTOL else [
+        f"step {t}: loss off by {loss_rel} (relative)"]
+    for k, v in ref["metrics"].items():
+        if exact.get(k) != v[t]:
+            fails.append(f"step {t}: {k} {exact.get(k)} != {v[t]}")
+    diff, leaf_fails = dp_compare(method, leaves, ref["states"][t + 1],
+                                  params, ref["states"][t])
+    return {"loss_rel": loss_rel, **diff}, fails + [
+        f"step {t}: {f}" for f in leaf_fails]
+
+
+def dp_digest(leaves):
+    """sha256 over a state's leaves in path order (path, dtype, shape,
+    bytes): equal digests, bit-equal states."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for path in sorted(leaves):
+        v = leaves[path]
+        h.update(path.encode())
+        if isinstance(v, torch.Tensor):
+            t = v.detach().contiguous().cpu()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def _cpu_leaves(leaves):
+    import torch
+
+    return {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+            else v for k, v in leaves.items()}
+
+
+def _load_leaves(state, leaves):
+    """Copy a snapshot's tensors (state_leaves paths) into the state's."""
+    import torch
+
+    with torch.no_grad():
+        for path, t in state_leaves(state).items():
+            if isinstance(t, torch.Tensor):
+                t.copy_(leaves[path])
+
+
+def dp_rank(rank, spec):
+    """One rank of a phase-8 group, a process of its own. With
+    spec["reference"], rank 0 first runs every cell with no process group
+    (the single-process steps at the global batch) and keeps the state
+    before and after each step. Then the rank joins the group
+    (parallel.make_mesh; spec["cards"][rank] on the card) and runs every
+    cell on its rows, each step from the reference's state before it
+    (rank 0 loads it and replicate_tree broadcasts it), so that each step
+    is held to the single-process one from the same state, as
+    tests/test_sharding.py holds one step (Adam's first update turns
+    rounding-level gradient differences into +-lr steps, which the next
+    step would compound). Writes {spec["out"]}/rank{rank}.pt: per cell the
+    run (dp_steps, the state digest after each step; on rank 0 the largest
+    difference a leaf class and the failures) and, with
+    spec["keep_states"], the final state leaves on the CPU (rank 0: the
+    reference's too) and the model's parameter names."""
+    import functools
+
+    import torch
+
+    from wsl4mis_torch import parallel
+
+    dev = spec["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(spec["cards"][rank])
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    if spec.get("widths"):  # narrow models (the CPU tests)
+        from wsl4mis_torch.engine.methods import common
+        from wsl4mis_torch.engine.methods import scribblevc as msvc
+        from wsl4mis_torch.models import net_factory
+
+        common.net_factory = functools.partial(
+            net_factory, features=spec["widths"]["features"])
+        msvc.net_factory = functools.partial(
+            net_factory, **spec["widths"]["scribblevc"])
+    refs = {}
+    if rank == 0 and spec["reference"]:
+        for cell in spec["cells"]:
+            cfg, bundle, batches = dp_bundle(cell, spec)
+            states = [_snapshot(state_leaves(bundle.state))]
+            refs[cell[0]] = dp_steps(
+                cfg, bundle, batches, dev, after=lambda *_: states.append(
+                    _snapshot(state_leaves(bundle.state))))
+            refs[cell[0]]["states"] = states
+            del bundle
+    device = f"cuda:{spec['cards'][rank]}" if dev == "cuda" else "cpu"
+    parallel.make_mesh(spec["world"], rank, device, spec["init_method"],
+                       spec["backend"])
+    out = {"rank": rank, "cells": {}, "states": {}, "reference": {},
+           "params": {}}
+    try:
+        for cell in spec["cells"]:
+            method = cell[0]
+            cfg, bundle, batches = dp_bundle(cell, spec)
+            ref = refs.pop(method, None)
+            params = {k for k, _ in bundle.model.named_parameters()}
+            digests, diffs, fails = [], {}, []
+
+            def before(t):
+                if not spec["reference"]:
+                    return
+                if ref is not None:
+                    _load_leaves(bundle.state, ref["states"][t])
+                parallel.replicate_tree(bundle.state.state_dict())
+
+            def after(t, loss, exact):
+                leaves = state_leaves(bundle.state)
+                digests.append(dp_digest(leaves))
+                if ref is not None:
+                    d, f = dp_check_step(method, t, loss, exact, ref, leaves,
+                                         params)
+                    for k, v in d.items():
+                        diffs[k] = max(diffs.get(k, 0.0), v)
+                    fails.extend(f)
+
+            run = dp_steps(cfg, bundle, batches, dev, before, after)
+            run["digests"] = digests
+            if ref is not None:
+                run.update(diff=diffs, fails=fails, reference={
+                    k: ref[k] for k in ("losses", "ms_per_step",
+                                        "launches")})
+                if spec["keep_states"]:
+                    out["reference"][method] = _cpu_leaves(
+                        ref["states"][-1])
+            if spec["keep_states"]:
+                out["states"][method] = _cpu_leaves(
+                    state_leaves(bundle.state))
+                out["params"][method] = params
+            out["cells"][method] = run
+            del bundle, ref
+            gc.collect()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        parallel.close_mesh()
+    torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
+
+
+def dp_group(world, cells, dev, out, cards=None, backend="gloo",
+             reference=True, keep_states=False, hw=HW, dtype="float32",
+             seed=0, widths=None, steps=DP_STEPS):
+    """Spawn `world` dp_rank processes (start method spawn) on a file
+    rendezvous in `out`; returns their outputs in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    spec = {"world": world, "cells": list(cells), "device": dev,
+            "cards": cards, "backend": backend, "reference": reference,
+            "keep_states": keep_states, "hw": hw, "dtype": dtype,
+            "seed": seed, "widths": widths, "steps": steps, "out": out,
+            "init_method": "file://" + os.path.join(out, "rendezvous")}
+    mp.start_processes(dp_rank, args=(spec,), nprocs=world,
+                       start_method="spawn")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dp_expected(cell, steps):
+    """A rank's launches over `steps` steps of a cell (s2l: and a refresh
+    sweep of its DP_SLICES)."""
+    method, model_name, _, _ = cell
+    out = {k: v * steps for k, v in per_step_counts(model_name,
+                                                    method).items()}
+    if method == "s2l":
+        for k, v in refresh_counts(model_name, DP_SLICES).items():
+            out[k] += v
+    return out
+
+
+def dp_verdict(outs, cells, dev, steps=DP_STEPS):
+    """The group's runs: on every rank finite losses, the same state
+    digests and, on the card, the launches of its steps (the CPU's plain
+    versions launch nothing); on rank 0 no failure against the reference.
+    Returns {method: record}."""
+    recs = {}
+    for cell in cells:
+        method = cell[0]
+        runs = [o["cells"][method] for o in outs]
+        r0 = runs[0]
+        digests = {tuple(r["digests"]) for r in runs}
+        want = dp_expected(cell, steps)
+        expect(dev != "cuda" or all(r["launches"] == want for r in runs),
+               f"data parallel {method}: launches "
+               f"{[r['launches'] for r in runs]} != {want}")
+        expect(all(math.isfinite(v) for r in runs for v in r["losses"]),
+               f"data parallel {method}: losses {r0['losses']}")
+        expect(len(digests) == 1, f"data parallel {method}: the ranks' "
+                                  f"states differ")
+        expect(not r0.get("fails"), f"data parallel {method}: against the "
+                                    f"single process: {r0.get('fails')}")
+        recs[method] = {
+            "batch": cell[2], "ranks": len(runs), "diff": r0["diff"],
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "single_ms_per_step": r0["reference"]["ms_per_step"],
+            "collectives_per_step": r0["collectives_per_step"],
+            "ranks_bit_equal": True,
+            "launches": [r["launches"] for r in runs]
+            + [r0["reference"]["launches"]]}
+    return recs
+
+
+def dp_nccl_one(seed, dev="cuda", hw=HW, dtype="bfloat16", batch=N,
+                steps=DP_NCCL_STEPS, out=None):
+    """fully_supervised at `batch` through the library API, `steps` steps
+    with no process group and again from the same seed in a group of one
+    (NCCL on the card, gloo on the CPU), every collective an NCCL call:
+    both states must be bit-equal. The median ms of a step of each, the
+    first step of each run left out, and the collectives a step."""
+    from wsl4mis_torch import parallel
+
+    cell = dp_cell("fully_supervised", batch)
+    spec = {"hw": hw, "seed": seed, "dtype": dtype, "device": dev,
+            "steps": steps}
+    runs = {}
+    for grouped in (False, True):
+        if grouped:
+            parallel.make_mesh(1, 0, dev, "file://" + os.path.join(
+                out, "rendezvous"), "nccl" if dev == "cuda" else "gloo")
+        try:
+            cfg, bundle, batches = dp_bundle(cell, spec)
+            run = dp_steps(cfg, bundle, batches, dev)
+            run["leaves"] = _snapshot(state_leaves(bundle.state))
+            runs[grouped] = run
+            del bundle
+        finally:
+            parallel.close_mesh()
+    bad, worst = leaves_diff(runs[True].pop("leaves"),
+                             runs[False].pop("leaves"))
+    expect(not bad and runs[True]["losses"] == runs[False]["losses"],
+           f"data parallel, one NCCL rank: {len(bad)} leaves differ from "
+           f"the run without a group (by {worst})")
+    expect(runs[True]["launches"] == runs[False]["launches"],
+           "data parallel, one NCCL rank: launches differ")
+    return {"batch": batch, "dtype": dtype, "steps": steps,
+            "leaves_differing": len(bad),
+            "ms_per_step": statistics.median(runs[True]["step_ms"][1:]),
+            "plain_ms_per_step": statistics.median(
+                runs[False]["step_ms"][1:]),
+            "collectives_per_step": runs[True]["collectives_per_step"],
+            "launches": [runs[True]["launches"], runs[False]["launches"]]}
+
+
+def dp_launch_records(dp):
+    """Phase 8's launch counts as records ({"launches": ...}): every rank's
+    and reference run's of (a) and (c), both runs of (b)."""
+    counts = [d for r in dp["two_ranks_gloo"].values() for d in
+              r["launches"]] + dp["nccl_one_rank"]["launches"] + dp[
+        "multi_card"].get("launches", [])
+    return [{"launches": d} for d in counts]
+
+
+def dp_phase(seed, card, dev="cuda", hw=HW, cells=DP_CELLS, widths=None,
+             nccl_batch=N, nccl_dtype="bfloat16"):
+    """Phase 8: (a) two ranks over gloo (on the card: both on cuda:0)
+    against the single-process steps at the global batch, every cell in
+    f32; (b) one NCCL rank against no group, bit for bit; (c) with more
+    than one card, min(4, cards) NCCL ranks on fully_supervised against
+    the single-process steps. Prints the data_parallel line."""
+    import torch
+
+    t0 = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke", "dp")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    outs = dp_group(2, cells, dev, os.path.join(base, "two_ranks"),
+                    cards=[0, 0] if dev == "cuda" else None, hw=hw,
+                    seed=seed, widths=widths)
+    two = dp_verdict(outs, cells, dev)
+    nccl_dir = os.path.join(base, "nccl_one")
+    shutil.rmtree(nccl_dir, ignore_errors=True)
+    os.makedirs(nccl_dir)
+    one = dp_nccl_one(seed, dev, hw, nccl_dtype, nccl_batch, out=nccl_dir)
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    multi = {"run": False, "cards": cards}
+    if cards > 1:
+        world = min(DP_MAX_CARDS, cards)
+        fs = [dp_cell("fully_supervised", N)]
+        outs = dp_group(world, fs, dev, os.path.join(base, "multi"),
+                        cards=list(range(world)), backend="nccl", hw=hw,
+                        seed=seed, widths=widths)
+        multi.update(run=True, world=world, **dp_verdict(outs, fs, dev)[
+            "fully_supervised"])
+    else:
+        print(f"data parallel: the multi-card run was not run ({cards} "
+              f"card{'s' * (cards != 1)})", flush=True)
+    out = {"card": card, "two_ranks_gloo": two, "nccl_one_rank": one,
+           "multi_card": multi, "phase_s": time.perf_counter() - t0}
+    line = {"card": card, "phase_s": out["phase_s"],
+            "two_ranks_gloo": {m: {k: r[k] for k in (
+                "batch", "diff", "ms_per_step", "single_ms_per_step",
+                "collectives_per_step", "ranks_bit_equal")}
+                for m, r in two.items()},
+            "nccl_one_rank": {k: v for k, v in one.items()
+                              if k != "launches"},
+            "multi_card": {k: v for k, v in multi.items()
+                           if k != "launches"}}
+    print("data_parallel " + json.dumps(line), flush=True)
     return out
 
 
@@ -3006,12 +3582,21 @@ def main(argv=None):
     resume = resume_phase(args.seed, data, scribbles, val, labeled,
                           unlabeled, svc_data, card)
     phase_s["resume"] = time.perf_counter() - t0 - sum(phase_s.values())
+    # phases 1-7 run with no process group: no collective at all
+    from wsl4mis_torch import parallel
+
+    expect(not parallel.active() and not any(parallel.calls.values()),
+           f"collectives before the data-parallel phase: {parallel.calls}")
+    print("collectives in phases 1-7: 0", flush=True)
+    dp = dp_phase(args.seed, card)
+    phase_s["data_parallel"] = (time.perf_counter() - t0
+                                - sum(phase_s.values()))
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
         "inference"] + [r for r in zoo["models"] if "launches" in r] + (
-        resume["runs"] + [resume["cli"]])
+        resume["runs"] + [resume["cli"]]) + dp_launch_records(dp)
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -3026,6 +3611,7 @@ def main(argv=None):
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
+              "data_parallel": dp,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

@@ -13,6 +13,7 @@ checkpoint) runs with narrow models, from an H5 tree and from memory."""
 
 import copy
 import functools
+import json
 import math
 import os
 import shutil
@@ -963,3 +964,96 @@ def test_method_bundle_builds_dmpls_on_unet_cct():
         cfg, synthetic_slices(4, (32, 32), seed=1, sup_type="scribble"),
         None)
     assert type(bundle.model).__name__ == "UNetCCT"
+
+
+DP_WIDTHS = {"features": (4, 8, 8, 16, 16), "scribblevc": SVC_NARROW}
+
+
+def test_data_parallel_phase_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phase 8 on the CPU at 64x64 with narrow models and small batches:
+    (a) two gloo ranks on each cell, every step within dp_compare's
+    tolerances of the single process from the same state and the ranks
+    bit-equal; (b) a group of one (gloo here) bit for bit the run with no
+    group, its collectives counted; (c) recorded as not run."""
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    cells = [chip_smoke.dp_cell(m, b) for m, b in (
+        ("fully_supervised", 4), ("dmpls", 2), ("uamt", 4), ("s2l", 4),
+        ("scribblevc", 6))]
+    out = chip_smoke.dp_phase(0, "cpu", dev="cpu", hw=64, cells=cells,
+                              widths=DP_WIDTHS, nccl_batch=4,
+                              nccl_dtype="float32")
+    two = out["two_ranks_gloo"]
+    assert list(two) == [c[0] for c in cells]
+    for method, r in two.items():
+        assert r["ranks_bit_equal"] and r["ranks"] == 2
+        assert r["collectives_per_step"]["all_reduce"] > 0, method
+        assert r["diff"]["loss_rel"] < chip_smoke.DP_LOSS_RTOL
+    assert two["scribblevc"]["diff"]["gate"] == 0.0
+    assert "ema" in two["uamt"]["diff"] and "weight" in two["s2l"]["diff"]
+    # the first moments were held (dp_moments), not only recorded
+    assert two["fully_supervised"]["diff"]["opt/momentum"] <= \
+        chip_smoke.DP_MOMENT_RTOL[None]
+    assert two["scribblevc"]["diff"]["opt/mu"] <= \
+        chip_smoke.DP_MOMENT_RTOL["scribblevc"]
+    one = out["nccl_one_rank"]
+    assert one["leaves_differing"] == 0 and one["steps"] == 10
+    assert one["collectives_per_step"]["all_reduce"] > 0
+    assert out["multi_card"] == {"run": False, "cards": 0}
+    printed = capsys.readouterr().out
+    assert "data parallel: the multi-card run was not run (0 cards)" in \
+        printed
+    line = next(x for x in printed.splitlines()
+                if x.startswith("data_parallel "))
+    assert set(json.loads(line.split(" ", 1)[1])) == {
+        "card", "phase_s", "two_ranks_gloo", "nccl_one_rank", "multi_card"}
+
+
+def _adam_leaves(rs, g, disc_g, nu_scale=1.0):
+    """state_leaves of a model parameter "w" under Adam (the optimizer's
+    mu / nu lists) and a discriminator's Adam state, after a step of
+    gradient g (disc_g) from the moments in `rs`'s first draws."""
+    mu0, nu0, dmu0 = (torch.from_numpy(rs.standard_normal(50)).float()
+                      for _ in range(3))
+    return {"/step": 1, "/model/w": torch.zeros(50), "/opt/count": 1,
+            "/opt/mu/0": 0.9 * mu0 + 0.1 * g,
+            "/opt/nu/0": 0.999 * nu0.abs() + 0.001 * nu_scale * g * g,
+            "/extra/disc_opt_state/count": 1,
+            "/extra/disc_opt_state/mu/k": 0.9 * dmu0 + 0.1 * disc_g}
+
+
+@pytest.mark.parametrize("method, got_g, got_disc, nu_scale, fails", [
+    ("deep_adversarial", 1.0, 1.0, 1.0, []),
+    ("deep_adversarial", 1.0 + 5e-3, 1.0, 1.0, []),
+    ("deep_adversarial", 2.0, 1.0, 1.0, ["opt/mu"]),        # summed
+    ("deep_adversarial", 1.0, 2.0, 1.0, ["disc_opt/mu"]),   # D summed
+    ("deep_adversarial", 1.0, 0.5, 1.0, ["disc_opt/mu"]),   # D halved
+    ("deep_adversarial", 1.0, 1.0, 3.0, []),                # nu recorded
+    ("deep_adversarial", 1.02, 1.0, 1.0, ["opt/mu"]),
+    ("scribblevc", 1.02, 1.0, 1.0, []),
+    ("scribblevc", 1.05, 1.0, 1.0, ["opt/mu"]),
+])
+def test_dp_moments_hold_the_first_moments(method, got_g, got_disc,
+                                           nu_scale, fails):
+    """dp_moments against a step whose gradient is a factor off: the
+    first moments' change is held in norm to DP_MOMENT_RTOL (a gradient
+    off by 1/2 or x2, as a missing average makes it, fails, in the model's
+    or the discriminator's Adam state alone), nu only recorded."""
+    g = torch.from_numpy(np.random.RandomState(1).standard_normal(50))
+    g = g.float()
+    before = _adam_leaves(np.random.RandomState(0), 0.0 * g, 0.0 * g)
+    # before's moments, then the step's change
+    for k in ("/opt/mu/0", "/extra/disc_opt_state/mu/k"):
+        before[k] = before[k] / 0.9
+    before["/opt/nu/0"] = before["/opt/nu/0"] / 0.999
+    want = _adam_leaves(np.random.RandomState(0), g, g)
+    got = _adam_leaves(np.random.RandomState(0), got_g * g, got_disc * g,
+                       nu_scale)
+    rel, failures = chip_smoke.dp_moments(method, got, want, before, {"w"})
+    assert set(rel) == {"opt/mu", "opt/nu", "disc_opt/mu"}
+    assert [f.split(" ")[0] for f in failures] == fails
+    np.testing.assert_allclose(rel["opt/mu"], abs(got_g - 1.0) * 0.1
+                               * float(g.norm()) / float(
+                                   (want["/opt/mu/0"] - before["/opt/mu/0"])
+                                   .norm()), rtol=1e-4)
+    _, leaf_fails = chip_smoke.dp_compare(method, got, want, {"w"}, before)
+    assert [f.split(" ")[0] for f in leaf_fails] == fails

@@ -80,7 +80,8 @@ EVERY_FLAG = [
     "--period_iter", "13", "--alpha", "0.375", "--val_every", "17",
     "--ckpt_every", "19", "--log_every", "3", "--compute_dtype", "float32",
     "--snapshot_root", "snap", "--resume", "--data_limit", "21",
-    "--aug_mode", "host", "--encoder_weights", "enc.msgpack"]
+    "--aug_mode", "host", "--encoder_weights", "enc.msgpack",
+    "--num_devices", "3"]
 
 
 def _shared_fields(port_cfg, jax_cfg):
@@ -112,12 +113,13 @@ def test_config_from_args_matches_the_jax_cli(name, argv):
 
 def test_the_parser_keeps_no_tpu_flag():
     parser = cli.build_parser({})
-    for flag in ("--steps_per_call", "--num_devices", "--profile_steps",
+    for flag in ("--steps_per_call", "--profile_steps",
                  "--device_data", "--remat", "--fast_prng"):
         with pytest.raises(SystemExit):
             parser.parse_args([flag, "1"])
     assert parser.parse_args([]).device == "cuda"
     assert parser.parse_args([]).encoder_weights is None
+    assert parser.parse_args([]).num_devices is None
 
 
 def test_resolve_script_takes_script_and_method_names():
@@ -262,3 +264,36 @@ def test_train_and_test_commands_end_to_end(tmp_path, monkeypatch, capsys):
         assert gt.spacing == (1.25, 1.25, 10.0)
     with pytest.raises(SystemExit):
         cli.main(["train_scribblevc", "PROSTATE"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--suite", "wss", "--folds", "all"], ["--suite", "semi"],
+    ["--methods", "dmpls,pce,scribblevc", "--folds", "fold2,fold4",
+     "--extra", "--max_iterations 5"], []])
+def test_launch_dry_run_lists_the_jax_scripts_jobs(argv, capsys):
+    """`launch --dry_run` prints the (method, fold) jobs of
+    scripts/launch_experiments.py --dry_run in its order, each the port's
+    train command of that script (train_scribblevc ACDC for ScribbleVC),
+    with the same fold and extra flags."""
+    from wsl4mis_torch import launch
+
+    spec = importlib.util.spec_from_file_location(
+        "launch_experiments", os.path.join(REPO, "scripts",
+                                           "launch_experiments.py"))
+    jlaunch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jlaunch)
+    assert jlaunch.main(argv + ["--dry_run"]) == 0
+    want = [line.split()[2:] for line in capsys.readouterr().out.splitlines()
+            if line.startswith("DRY:")]
+    assert launch.main(argv + ["--dry_run"]) == 0
+    got = [line.split()[2:] for line in capsys.readouterr().out.splitlines()
+           if line.startswith("DRY:")]
+    assert launch.SUITES == jlaunch.SUITES and len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        script = os.path.basename(w[0])[:-3]
+        assert g[:2] == ["-m", "wsl4mis_torch.cli"]
+        if script == "train_ACDC_scribblevc":
+            assert g[2:4] == ["train_scribblevc", "ACDC"]
+        else:
+            assert g[2:4] == ["train", script]
+        assert g[4:] == w[1:]

@@ -16,7 +16,14 @@ ZERO_GRAD of the largest gradient element).
 The legacy GAN (ResnetGenerator, UnetGenerator, NLayerDiscriminator at
 narrow widths on 2x32x32x1) likewise, its ResnetBlock dropout masks
 injected; select_initializer's schemes against flax's initializers in
-their statistics; get_schedule and gan_loss against the JAX functions."""
+their statistics; get_schedule and gan_loss against the JAX functions.
+
+``interp_axis`` (their and ScribbleVC's upsampling): its forward is the
+index_select expression bit for bit, and its backward, a fixed-order
+product with the interpolation matrix (index_select's index_add
+accumulates with atomics on the card), agrees with index_select's
+autograd and with jax.grad of nets3d._interp_axis to 1e-6 of the largest
+gradient element."""
 
 import math
 
@@ -31,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 import wsl4mis_tpu.models.legacy_gan as jgan  # noqa: E402
 import wsl4mis_tpu.models.nets3d as jnets  # noqa: E402
 from wsl4mis_torch.models import legacy_gan as pgan  # noqa: E402
+from wsl4mis_torch.models.layers import interp_axis  # noqa: E402
 from wsl4mis_torch.models.nets3d import net_factory_3d  # noqa: E402
 from wsl4mis_torch.utils.params import from_flax, load_flax_variables  # noqa: E402
 
@@ -232,6 +240,65 @@ def test_dropout_draws_come_from_the_dropout_generator(name):
 
     assert torch.equal(run(1), run(1))
     assert not torch.equal(run(1), run(2))
+
+
+def _interp_index_select(x, axis, out_size, align_corners):
+    """interp_axis's forward as it was written before its backward became
+    deterministic: two index_selects, differentiated by autograd."""
+    in_size = x.shape[axis]
+    pos = torch.arange(out_size, dtype=torch.float32)
+    if align_corners and out_size > 1:
+        src = pos * ((in_size - 1) / (out_size - 1))
+    else:
+        src = (pos + 0.5) * (in_size / out_size) - 0.5
+    src = src.clamp(0, in_size - 1)
+    lo = src.floor()
+    w = (src - lo).to(x.dtype)
+    lo = lo.long()
+    hi = (lo + 1).clamp(max=in_size - 1)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    w = w.view(shape)
+    return (x.index_select(axis, lo) * (1 - w)
+            + x.index_select(axis, hi) * w)
+
+
+def _grad_fns(fn):
+    seen, stack = set(), [fn]
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        stack.extend(n for n, _ in f.next_functions)
+    return {type(f).__name__ for f in seen}
+
+
+@pytest.mark.parametrize("axis, out_size, align_corners", [
+    (1, 14, True), (2, 10, False), (3, 12, True), (1, 3, False),
+    (2, 5, True)])
+def test_interp_axis_backward_has_no_index_add(axis, out_size,
+                                               align_corners):
+    rs = np.random.RandomState(axis * 100 + out_size)
+    x_np = rs.standard_normal((2, 7, 5, 6, 3)).astype(np.float32)
+    x = torch.from_numpy(x_np).requires_grad_(True)
+    y = interp_axis(x, axis, out_size, align_corners)
+    x0 = torch.from_numpy(x_np).requires_grad_(True)
+    y0 = _interp_index_select(x0, axis, out_size, align_corners)
+    assert torch.equal(y, y0)
+    assert "IndexSelectBackward0" not in _grad_fns(y.grad_fn)
+    assert "IndexSelectBackward0" in _grad_fns(y0.grad_fn)
+    g_np = rs.standard_normal(tuple(y.shape)).astype(np.float32)
+    g = torch.from_numpy(g_np)
+    (got,) = torch.autograd.grad(y, x, g)
+    (want,) = torch.autograd.grad(y0, x0, g)
+    _, vjp = jax.vjp(lambda a: jnets._interp_axis(a, axis, out_size,
+                                                  align_corners),
+                     jnp.asarray(x_np))
+    (jgrad,) = vjp(jnp.asarray(g_np))
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert np.abs(got.numpy() - np.asarray(jgrad)).max() <= 1e-6 * scale
 
 
 def test_net_factory_3d_builds_every_name():

@@ -132,6 +132,24 @@ def test_trainer_runs_validates_checkpoints_and_resumes(acdc_tree, tmp_path,
     assert os.path.isfile(os.path.join(snap, "iter_6.pth"))
 
 
+def test_trainer_rejects_a_width_its_process_group_does_not_have(acdc_tree,
+                                                                  tmp_path):
+    """TrainConfig.num_devices is the data-parallel width: a Trainer built
+    in one process with no group refuses any width but 1 (the ranks come
+    from parallel.spawn) and writes nothing."""
+    cfg = _cfg(acdc_tree, tmp_path, batch_size=4)
+    bundle = get_method(cfg.method).build(cfg)
+    for n in (2, 4):
+        with pytest.raises(ValueError, match=f"num_devices {n} but this "
+                                             f"process is rank 0 of 1"):
+            Trainer(cfg.replace(num_devices=n), bundle,
+                    use_tensorboard=False)
+    assert not os.path.exists(cfg.snapshot_path)
+    trainer = Trainer(cfg.replace(num_devices=1), bundle,
+                      use_tensorboard=False)
+    assert trainer.mesh.world_size == 1 and trainer.lead
+
+
 def test_predictor_batched_equals_per_volume(acdc_tree):
     cfg = _cfg(acdc_tree, "unused")
     bundle = get_method("fully_supervised").build(cfg)
@@ -168,6 +186,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages("
         "wsl4mis_torch.__path__, 'wsl4mis_torch.')]\n"
         "assert len(names) > 30 and 'wsl4mis_torch.ops.gated_crf' in names\n"
+        "assert 'wsl4mis_torch.parallel.mesh' in names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

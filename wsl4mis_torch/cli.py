@@ -7,6 +7,7 @@ package's train and test scripts under ``scripts/``).
     python -m wsl4mis_torch.cli test_scribblevc {ACDC,Prostate} [flags]
     python -m wsl4mis_torch.cli val_curve LOG [LOG ...]
     python -m wsl4mis_torch.cli convert_torch_weights --torch_ckpt PTH --out F
+    python -m wsl4mis_torch.cli launch [--suite S] [--methods M] [--folds F]
 
 ``train`` takes a reference train script's name (``train_fully_supervised_2D``,
 ``.py`` optional) or a method name, with that script's defaults
@@ -16,8 +17,12 @@ train_ACDC_scribblevc.py / train_MSCMR_scribblevc.py (epochs, AdamW's
 lr), ``test`` test_2D_fully.py (``--model unet_cct``: test_2D_fully_sps.py),
 ``test_scribblevc`` test_ACDC_scribblevc.py / test_scribblevc.py (and, with
 ``--checkpoints``, test_scribblevc_multi.py), ``val_curve`` val_curve.py and
-``convert_torch_weights`` convert_torch_weights.py. Every command that
-runs a model runs on the card unless given ``--device cpu``.
+``convert_torch_weights`` convert_torch_weights.py, ``launch``
+scripts/launch_experiments.py (``launch``). Every command that runs a
+model runs on the card unless given ``--device cpu``. ``train
+--num_devices N`` trains data-parallel in N processes, one a card
+(``parallel``; None: every visible card; with ``--device cpu``, N gloo
+processes).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import sys
 
 import torch
 
+from . import parallel
 from .engine.config import TrainConfig
 from .engine.methods import available_methods, get_method
 from .engine.trainer import Trainer
@@ -165,6 +171,9 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
         help="efficient_unet: a converted encoder file "
              "(convert_torch_weights)")
     add("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    add("--num_devices", type=int, default=None,
+        help="data-parallel processes, one a card (default: every visible "
+             "card; on the CPU, gloo processes, default 1)")
     return p
 
 
@@ -203,6 +212,7 @@ def config_from_args(args, method: str) -> TrainConfig:
         data_limit=args.data_limit,
         aug_mode=args.aug_mode,
         device=args.device,
+        num_devices=args.num_devices,
         encoder_weights=args.encoder_weights,
     )
 
@@ -225,7 +235,19 @@ def make_trainer(method: str, defaults: dict, argv=None) -> Trainer:
 
 
 def train_main(method: str, defaults: dict, argv=None) -> str:
-    return make_trainer(method, defaults, argv).train()
+    """The train command: one process, or --num_devices ranks spawned
+    (``_train_rank``), each a card's (or a gloo CPU process's)."""
+    args = build_parser(defaults).parse_args(argv)
+    n = parallel.visible_cards(args.device, args.num_devices)
+    if n == 1:
+        return make_trainer(method, defaults, argv).train()
+    parallel.spawn(_train_rank, n, args.device,
+                   args=(method, defaults, argv))
+    return "Training Finished!"
+
+
+def _train_rank(rank: int, method: str, defaults: dict, argv) -> None:
+    make_trainer(method, defaults, argv).train()
 
 
 def resolve_script(name: str) -> tuple[str, dict]:
@@ -515,6 +537,10 @@ def main(argv=None) -> None:
         val_curve_main(argv[1:])
     elif command == "convert_torch_weights":
         convert_main(argv[1:])
+    elif command == "launch":
+        from . import launch
+
+        raise SystemExit(launch.main(argv[1:]))
     else:
         raise SystemExit(__doc__)
 

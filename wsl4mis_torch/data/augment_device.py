@@ -18,18 +18,21 @@ from __future__ import annotations
 
 import torch
 
+from .. import parallel
 from ..ops import augment as _augment
 
 
 def sample_policy(generator, labels) -> torch.Tensor:
-    """(B, 4) int32 rows (branch, k, axis, angle) on labels' device."""
-    b, dev = labels.shape[0], labels.device
+    """(B, 4) int32 rows (branch, k, axis, angle) on labels' device; under
+    a process group the rank's rows of the global batch's policy."""
+    b, dev = parallel.global_batch(labels.shape[0]), labels.device
     u = torch.rand((b, 2), generator=generator, device=dev)
     branch = torch.where(u[:, 0] > 0.5, 0, torch.where(u[:, 1] > 0.5, 1, 2))
     k = torch.randint(0, 4, (b,), generator=generator, device=dev)
     axis = torch.randint(0, 2, (b,), generator=generator, device=dev)
     angle = torch.randint(-20, 20, (b,), generator=generator, device=dev)
-    return torch.stack([branch, k, axis, angle], 1).to(torch.int32)
+    return parallel.local_rows(
+        torch.stack([branch, k, axis, angle], 1).to(torch.int32))
 
 
 def augment_batch(generator, images, labels):

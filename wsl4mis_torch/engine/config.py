@@ -1,7 +1,8 @@
 """Shared training configuration (port of
 ``wsl4mis_tpu/engine/config.py``). Field names keep the reference CLI flag
 names. The TPU runtime knobs (steps_per_call, fast_prng, remat,
-num_devices, profile_steps) are not ported; ``device`` is new."""
+profile_steps) are not ported; ``device`` is new. ``num_devices`` is the
+data-parallel width: one process a card (``parallel``)."""
 
 from __future__ import annotations
 
@@ -56,6 +57,11 @@ class TrainConfig:
                                         # "host": batches arrive augmented
     device: str = "cuda"                # "cuda" or "cpu"; cuda never falls
                                         # back to the CPU
+    num_devices: int | None = None      # processes of a data-parallel run,
+                                        # one a card (gloo ones on the
+                                        # CPU); None: every visible card.
+                                        # The Trainer raises where it
+                                        # differs from the process group's
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

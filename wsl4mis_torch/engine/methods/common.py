@@ -17,6 +17,7 @@ from ...data import (
     batch_iterator,
     paired_iterator,
 )
+from ... import parallel
 from ...data.augment import HostRandomGenerator
 from ...models import net_factory
 from ...models.factory import MODEL_NUM_OUTPUTS
@@ -59,6 +60,9 @@ class MethodBundle:
                                     # under info/val_select_*)
     eval_extra: tuple = ()          # state.extra keys the eval forward
                                     # needs, saved in inference checkpoints
+    batch_parts: tuple | None = None  # the batch's parts, each sharded on
+                                    # its own over a process group
+                                    # (semi_parts); None: one part
 
 
 def compute_dtype(cfg: TrainConfig) -> torch.dtype:
@@ -164,6 +168,13 @@ def resolve_labeled_bs(cfg: TrainConfig) -> int:
     return cfg.batch_size // 2
 
 
+def semi_parts(cfg: TrainConfig) -> tuple[int, int]:
+    """(labeled, unlabeled) rows of a semi-supervised batch: the parts the
+    student runs on apart, so each is sharded on its own."""
+    labeled_bs = resolve_labeled_bs(cfg)
+    return labeled_bs, cfg.batch_size - labeled_bs
+
+
 def semi_datasets(cfg: TrainConfig):
     """The labeled and unlabeled train slices of the fold (dense labels on
     both, whatever cfg.sup_type says) and its val volumes."""
@@ -181,8 +192,7 @@ def paired_data(cfg: TrainConfig, labeled, unlabeled):
     """(the stack [labeled; unlabeled] to stage, its paired index-batch
     stream, steps per epoch: the unlabeled slices over the unlabeled
     batch)."""
-    labeled_bs = resolve_labeled_bs(cfg)
-    unlabeled_bs = cfg.batch_size - labeled_bs
+    labeled_bs, unlabeled_bs = semi_parts(cfg)
     stack = ArraySliceDataset(
         np.concatenate([labeled.images, unlabeled.images]),
         np.concatenate([labeled.labels, unlabeled.labels]))
@@ -201,12 +211,15 @@ def stage_dataset(cfg: TrainConfig, train) -> dict:
     }
 
 
-def prep_batch(generator, batch, staged=None, augment: bool = True):
+def prep_batch(generator, batch, staged=None, augment: bool = True,
+               labeled: int | None = None):
     """Gather (from the staged dataset) + augmentation + NHWC expansion.
 
     batch is {"index"} over `staged`, or {"image", "label"} tensors already
     on the device (augment=False when they arrive augmented:
-    train_batches with aug_mode "host"). Returns
+    train_batches with aug_mode "host"); `labeled`: the batch is [labeled
+    rows; the rest] (the semi family's parts, each sharded on its own, so
+    the rank draws its rows of each part's policy). Returns
     (x (B,H,W,1) f32, labels (B,H,W) int32)."""
     if staged is not None and "index" in batch:
         idx = torch.as_tensor(batch["index"]).to(staged["images"].device,
@@ -216,7 +229,10 @@ def prep_batch(generator, batch, staged=None, augment: bool = True):
     else:
         images, labels = batch["image"], batch["label"]
     if augment:
-        images, labels = augment_batch(generator, images, labels)
+        parts = () if labeled is None else (labeled,
+                                             labels.shape[0] - labeled)
+        with parallel.row_segments(*parts):
+            images, labels = augment_batch(generator, images, labels)
     return images[..., None], labels
 
 

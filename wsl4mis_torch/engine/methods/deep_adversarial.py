@@ -14,13 +14,16 @@ train_deep_adversarial_network_2D.py:100-180). Both phases run in one step:
 The discriminator's parameters and Adam state live in state.extra
 ({"disc_params", "disc_opt_state"}; the discriminator module computes with
 those very tensors). Its channel-dropout masks draw from
-rngs["feature_perturb"]; a caller may pass `channel_masks` instead.
+rngs["feature_perturb"]; a caller may pass `channel_masks` instead. Under a
+process group each rank holds its rows of both parts, and the
+discriminator's gradients are averaged over the ranks as the segmenter's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import parallel
 from ...models.discriminator import FCDiscriminator
 from ...ops import losses
 from ...utils.device import resolve_device
@@ -34,6 +37,7 @@ from .common import (
     prep_batch,
     resolve_labeled_bs,
     semi_datasets,
+    semi_parts,
     sigmoid_rampup,
     stage_dataset,
     train_vis,
@@ -64,9 +68,10 @@ def make_step(cfg: TrainConfig, disc: FCDiscriminator):
     disc.requires_grad_(False)
 
     def step_fn(state, batch, rngs, aux=None, channel_masks=None):
-        x, labels = prep_batch(rngs["aug"], batch, aux)
-        x_lab, y_lab = x[:labeled_bs], labels[:labeled_bs]
-        x_unlab = x[labeled_bs:]
+        lab = labeled_bs // parallel.world_size()  # the rank's rows
+        x, labels = prep_batch(rngs["aug"], batch, aux, labeled=lab)
+        x_lab, y_lab = x[:lab], labels[:lab]
+        x_unlab = x[lab:]
 
         # G-step
         out_lab = state.model(x_lab, train=True, rngs=rngs)
@@ -90,12 +95,14 @@ def make_step(cfg: TrainConfig, disc: FCDiscriminator):
             probs_all = torch.softmax(
                 torch.cat([out_lab_eval, out_unlab_eval]), dim=-1)
         disc.requires_grad_(True)
-        d_out = disc(probs_all, x, train=True,
-                     generator=rngs["feature_perturb"],
-                     channel_masks=channel_masks)
-        d_target = torch.arange(x.shape[0], device=x.device) < labeled_bs
+        with parallel.row_segments(lab, x.shape[0] - lab):
+            d_out = disc(probs_all, x, train=True,
+                         generator=rngs["feature_perturb"],
+                         channel_masks=channel_masks)
+        d_target = torch.arange(x.shape[0], device=x.device) < lab
         d_loss = losses.cross_entropy(d_out, d_target.long())
         grads = torch.autograd.grad(d_loss, disc_params)
+        parallel.average_gradients(grads)
         disc.requires_grad_(False)
         reference_adam(state.extra["disc_params"], dict(zip(names, grads)),
                        state.extra["disc_opt_state"])
@@ -120,7 +127,8 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
     return MethodBundle(model=model, state=state,
                         step_fn=make_step(cfg, disc),
                         aux=stage_dataset(cfg, stack), data_iter=it,
-                        val_volumes=val, steps_per_epoch=spe)
+                        val_volumes=val, steps_per_epoch=spe,
+                        batch_parts=semi_parts(cfg))
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

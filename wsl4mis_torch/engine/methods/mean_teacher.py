@@ -19,7 +19,9 @@ of mean_teacher and uamt is the student's network over EMA parameters
 updated after each SGD step (state.ema_update, alpha = cfg.ema_decay).
 
 The noises and teacher dropout draw from rngs["method"]; a caller may pass
-the noises instead (`noise`, `mc_noise`).
+the noises instead (`noise`, `mc_noise`). Under a process group each rank
+holds its rows of both parts (``MethodBundle.batch_parts``) and draws its
+rows of the global batch's noises and masks.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import math
 
 import torch
 
+from ... import parallel
 from ...models.norm import FusedBatchNorm
 from ...ops import losses
 from ..config import TrainConfig
@@ -40,6 +43,7 @@ from .common import (
     prep_batch,
     resolve_labeled_bs,
     semi_datasets,
+    semi_parts,
     sigmoid_rampup,
     stage_dataset,
     train_vis,
@@ -52,9 +56,12 @@ TEACHER_METHODS = ("mean_teacher", "uamt")
 
 def clamped_noise(generator, shape) -> torch.Tensor:
     """torch.clamp(randn * 0.1, -0.2, 0.2) (train_mean_teacher_2D.py:147-
-    149), on the generator's device."""
-    return torch.randn(shape, generator=generator,
-                       device=generator.device).mul_(0.1).clamp_(-0.2, 0.2)
+    149) of a batch of `shape`, on the generator's device (the rank's rows
+    of the global batch's draw)."""
+    shape = (parallel.global_batch(shape[0]), *shape[1:])
+    return parallel.local_rows(torch.randn(
+        shape, generator=generator,
+        device=generator.device).mul_(0.1).clamp_(-0.2, 0.2))
 
 
 class EmaTeacher:
@@ -94,14 +101,17 @@ def mc_uncertainty(teacher, x, generator, noises=None, T=8):
     """Predictive entropy (B,H,W,1) of the teacher over T noisy passes,
     run as T // 2 passes of the doubled batch [x; x] (BN's batch statistics
     span both copies): preds = (acc[:B] + acc[B:]) / T, entropy with
-    log(p + 1e-6). `noises`: the passes' (2B,H,W,1) noises."""
+    log(p + 1e-6). `noises`: the passes' (2B,H,W,1) noises. Under a process
+    group a rank's doubled batch holds its rows of both copies."""
     tiled = torch.cat([x, x])
-    if noises is None:
-        noises = [clamped_noise(generator, tiled.shape)
-                  for _ in range(T // 2)]
-    acc = sum(torch.softmax(teacher_forward(teacher, tiled + n, generator),
-                            dim=-1) for n in noises)
     b = x.shape[0]
+    with parallel.row_segments(b, b):
+        if noises is None:
+            noises = [clamped_noise(generator, tiled.shape)
+                      for _ in range(T // 2)]
+        acc = sum(torch.softmax(teacher_forward(teacher, tiled + n,
+                                                generator), dim=-1)
+                  for n in noises)
     preds = (acc[:b] + acc[b:]) / T
     return -torch.sum(preds * torch.log(preds + 1e-6), dim=-1, keepdim=True)
 
@@ -115,8 +125,11 @@ def certain_mask(uncertainty, step: int, max_iterations: int):
 
 
 def masked_mse(mask, dist):
-    """sum(mask * dist) / (2 sum(mask) + 1e-16)."""
-    return torch.sum(mask * dist) / (2 * torch.sum(mask) + 1e-16)
+    """sum(mask * dist) / (2 sum(mask) + 1e-16), both sums over the global
+    batch."""
+    total, count = parallel.global_sums(torch.sum(mask * dist),
+                                        torch.sum(mask))
+    return total / (2 * count + 1e-16)
 
 
 def make_step(cfg: TrainConfig):
@@ -128,10 +141,11 @@ def make_step(cfg: TrainConfig):
     teacher_of = EmaTeacher()
 
     def step_fn(state, batch, rngs, aux=None, noise=None, mc_noise=None):
+        lab = labeled_bs // parallel.world_size()  # the rank's rows
         # the reference always augments here, aug_mode notwithstanding
-        x, labels = prep_batch(rngs["aug"], batch, aux)
-        x_lab, y_lab = x[:labeled_bs], labels[:labeled_bs]
-        x_unlab = x[labeled_bs:]
+        x, labels = prep_batch(rngs["aug"], batch, aux, labeled=lab)
+        x_lab, y_lab = x[:lab], labels[:lab]
+        x_unlab = x[lab:]
         out_lab = state.model(x_lab, train=True, rngs=rngs)
         loss_ce = losses.cross_entropy(out_lab, y_lab)
         loss_dice = losses.dice_loss(torch.softmax(out_lab, dim=-1), y_lab,
@@ -152,8 +166,8 @@ def make_step(cfg: TrainConfig):
                     noise = clamped_noise(gen, x_unlab.shape)
                 ema_out = teacher_forward(teacher, x_unlab + noise, gen)
                 if method == "mean_teacher":
-                    consistency = torch.mean(
-                        (probs_unlab - torch.softmax(ema_out, dim=-1)) ** 2)
+                    consistency = parallel.global_mean(torch.mean(
+                        (probs_unlab - torch.softmax(ema_out, dim=-1)) ** 2))
                 else:  # uamt
                     dist = losses.softmax_mse_loss(out_unlab, ema_out)
                     unc = mc_uncertainty(teacher, x_unlab, gen, mc_noise)
@@ -187,7 +201,8 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
     stack, it, spe = paired_data(cfg, labeled, unlabeled)
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
                         aux=stage_dataset(cfg, stack), data_iter=it,
-                        val_volumes=val, steps_per_epoch=spe)
+                        val_volumes=val, steps_per_epoch=spe,
+                        batch_parts=semi_parts(cfg))
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -12,13 +12,15 @@ cross-entropy on scribbles.
                             sigmoid_rampup(step // 150, consistency_rampup)
 
 x is the augmented input image (B,H,W,1). inter / intra are statistics of
-img * probs with torch.std (unbiased).
+img * probs with torch.std (unbiased), per sample, then averaged over the
+(global) batch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import parallel
 from ...ops import losses
 from ...ops.gated_crf import gated_crf_loss
 from ..config import TrainConfig
@@ -39,12 +41,13 @@ METHODS = ("pce_tv", "pce_entropy_mini", "pce_gatedcrf", "pce_mumford_shah",
 def _intra_class_variance(probs, img):
     """std over the pixels of img * prob per (sample, class), then mean."""
     prod = img * probs  # (B,H,W,C)
-    return torch.std(prod.flatten(1, 2), dim=1).mean()
+    return parallel.global_mean(torch.std(prod.flatten(1, 2), dim=1).mean())
 
 
 def _inter_class_variance(probs, img):
     """Pixel mean per (sample, class), std over the classes, then mean."""
-    return torch.std((img * probs).mean(dim=(1, 2)), dim=1).mean()
+    return parallel.global_mean(
+        torch.std((img * probs).mean(dim=(1, 2)), dim=1).mean())
 
 
 def make_step(cfg: TrainConfig):

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import parallel
 from ...data import AcdcSliceDataset, AcdcVolumeDataset
 from ...eval.val2d import VolumePredictor
 from ...models import net_factory
@@ -134,7 +135,7 @@ def make_step(cfg: TrainConfig, steps_per_epoch: int):
             losses.pdice_loss(p1, pseudo, num_classes, ignore)
             + losses.pdice_loss(p2, pseudo, num_classes, ignore))
         loss_crf = gated_crf_loss(beta * p1 + (1 - beta) * p2, x)
-        loss_cls = 0.5 * (
+        loss_cls = 0.5 * parallel.global_mean(
             F.binary_cross_entropy_with_logits(conv_cls, category)
             + F.binary_cross_entropy_with_logits(tran_cls, category))
         loss = loss_ce + W_PSE * loss_pse + W_CRF * loss_crf \

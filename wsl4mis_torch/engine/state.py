@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils.params import (
     check_keys,
     copy_named,
@@ -51,9 +52,14 @@ class TrainState:
         return next(self.model.parameters()).device
 
     def minimize(self, loss: torch.Tensor) -> None:
-        """Backward of `loss`, one optimizer update, step + 1."""
+        """Backward of `loss`, one optimizer update, step + 1. Under a
+        process group the gradients are averaged over the ranks first: each
+        rank's backward carries W times its share of the global loss's
+        gradient (``parallel``), so the mean is that gradient."""
         self.opt.zero_grad()
         loss.backward()
+        parallel.average_gradients(
+            [p.grad for p in self.opt.params if p.grad is not None])
         self.opt.step()
         self.step += 1
 

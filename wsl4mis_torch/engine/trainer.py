@@ -24,6 +24,15 @@ package's format (``utils.checkpoint.restore_train_state``), with the
 data iterator started anew, as the JAX trainer does. A JAX run continued
 here takes the port's draws from the resumed step on: JAX's PRNG streams
 have no torch counterpart.
+
+Under a process group (``parallel.make_mesh``; the counterpart of the JAX
+trainer's mesh) the state is replicated from rank 0, each rank runs the
+same global batch stream and keeps its rows of each batch
+(``parallel.shard_batch``, part by part with ``bundle.batch_parts``), and
+the step equals the single-process step at the global batch. Rank 0 alone
+writes the snapshot dir (code, log.txt, TensorBoard, checkpoints) and
+validates; the other ranks wait at a barrier. Every rank restores the same
+file on ``--resume`` and runs the host hook.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import shutil
 
 import numpy as np
 
+from .. import parallel
 from ..data.loader import prefetch
 from ..eval.val2d import VolumePredictor, evaluate_fold, nanmean
 from ..utils.checkpoint import (
@@ -54,18 +64,32 @@ class Trainer:
         self.bundle = bundle
         self.device = resolve_device(cfg.device)
         self.snapshot_path = cfg.snapshot_path
-        os.makedirs(self.snapshot_path, exist_ok=True)
-        setup_run_logging(self.snapshot_path)
-        self._snapshot_code()
+        self.mesh = parallel.current_mesh()
+        if cfg.num_devices not in (None, self.mesh.world_size):
+            raise ValueError(
+                f"num_devices {cfg.num_devices} but this process is rank "
+                f"{self.mesh.rank} of {self.mesh.world_size}: start the "
+                f"ranks with parallel.spawn (the train command does)")
+        self.lead = self.mesh.rank == 0
+        parallel.check_batch(self.mesh, cfg.batch_size, bundle.batch_parts)
+        if self.lead:
+            os.makedirs(self.snapshot_path, exist_ok=True)
+            setup_run_logging(self.snapshot_path)
+            self._snapshot_code()
 
         self.state = bundle.state
         self.image_every = 20  # train_fully_supervised_2D.py:121
-        self.data_iter = prefetch(bundle.data_iter, size=4)
+        batches = bundle.data_iter
+        if self.mesh.world_size > 1:
+            parallel.replicate_tree(self.state.state_dict())
+            batches = (parallel.shard_batch(self.mesh, b, bundle.batch_parts)
+                       for b in batches)
+        self.data_iter = prefetch(batches, size=4)
         self.predictor = bundle.predictor or VolumePredictor(
             bundle.model, cfg.patch_size, device=self.device)
 
         self.writer = None
-        if use_tensorboard:
+        if use_tensorboard and self.lead:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -171,7 +195,7 @@ class Trainer:
             if iter_num % self.image_every == 0:
                 self._images(metrics.get("vis"), iter_num)
 
-            if iter_num % cfg.log_every == 0:
+            if iter_num % cfg.log_every == 0 and self.lead:
                 host = {k: float(v) for k, v in metrics.items() if k != "vis"}
                 lr = self.state.opt.schedule(iter_num)
                 self._scalar("info/lr", lr, iter_num)
@@ -183,7 +207,7 @@ class Trainer:
                     1e3 * timer.tick() / cfg.log_every,
                 )
 
-            if iter_num > 0 and iter_num % cfg.val_every == 0:
+            if iter_num > 0 and iter_num % cfg.val_every == 0 and self.lead:
                 performance, mean_hd95 = self.validate(iter_num)
                 thresh = self.bundle.dice_snapshot_threshold
                 if thresh is not None and performance > thresh:
@@ -197,12 +221,14 @@ class Trainer:
                 logging.info("iteration %d : mean_dice : %f mean_hd95 : %f",
                              iter_num, performance, mean_hd95)
 
-            if iter_num % cfg.ckpt_every == 0:
+            if iter_num % cfg.ckpt_every == 0 and self.lead:
                 self._save_model(f"iter_{iter_num}.pth")
                 save_train_state(
                     os.path.join(self.snapshot_path, "latest_full.ckpt"),
                     self.state)
                 logging.info("save model to %s", self.snapshot_path)
+            if iter_num % cfg.val_every == 0 or iter_num % cfg.ckpt_every == 0:
+                parallel.barrier()  # the other ranks wait for rank 0
 
             # after the checkpoint, as the JAX trainer runs it: a checkpoint
             # of a hook iteration holds the state from before the hook

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from .norm import FusedBatchNorm
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -207,9 +208,38 @@ def instance_norm(x, eps: float = 1e-5):
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class _LinearInterp(torch.autograd.Function):
+    """x[lo] * (1 - w) + x[hi] * w along `axis`. The backward is a product
+    with the (out, in) interpolation matrix, two nonzeros a row, and not
+    index_select's index_add, whose atomics sum in no fixed order on the
+    card: the gradient is a function of its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, axis, lo, hi, w):
+        ctx.save_for_backward(lo, hi, w)
+        ctx.axis, ctx.shape = axis, x.shape
+        shape = [1] * x.ndim
+        shape[axis] = w.shape[0]
+        wv = w.view(shape)
+        return (x.index_select(axis, lo) * (1 - wv)
+                + x.index_select(axis, hi) * wv)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, w = ctx.saved_tensors
+        axis, shape = ctx.axis, ctx.shape
+        cols = torch.arange(shape[axis], device=g.device)
+        m = ((1 - w)[:, None] * (cols == lo[:, None])
+             + w[:, None] * (cols == hi[:, None]))  # (out, in)
+        pre = math.prod(shape[:axis])
+        gx = torch.matmul(m.t(), g.reshape(pre, w.shape[0], -1))
+        return gx.reshape(shape), None, None, None, None
+
+
 def interp_axis(x, axis: int, out_size: int, align_corners: bool):
     """1D linear interpolation along one axis, the weights in x's dtype
-    (the port's copy of ``wsl4mis_tpu/models/nets3d._interp_axis``)."""
+    (the port's copy of ``wsl4mis_tpu/models/nets3d._interp_axis``), with
+    a deterministic backward (``_LinearInterp``)."""
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
@@ -223,11 +253,7 @@ def interp_axis(x, axis: int, out_size: int, align_corners: bool):
     w = (src - lo).to(x.dtype)
     lo = lo.long()
     hi = (lo + 1).clamp(max=in_size - 1)
-    shape = [1] * x.ndim
-    shape[axis] = out_size
-    w = w.view(shape)
-    return (x.index_select(axis, lo) * (1 - w)
-            + x.index_select(axis, hi) * w)
+    return _LinearInterp.apply(x, axis % x.ndim, lo, hi, w)
 
 
 def upsample_nearest(z, factor: int):
@@ -241,8 +267,8 @@ def upsample_nearest(z, factor: int):
 class Dropout:
     """Dropout draws in forward order: each call takes the next of the
     given keep masks, else draws one from the generator (element-wise, or
-    one per sample and channel: shape (N, 1, ..., 1, C)); kept values are
-    scaled by 1 / (1 - rate)."""
+    one per sample and channel: shape (N, 1, ..., 1, C); the rank's rows of
+    the global batch's draw); kept values are scaled by 1 / (1 - rate)."""
 
     def __init__(self, generator=None, masks=None):
         self.generator = generator
@@ -252,10 +278,12 @@ class Dropout:
         if self.masks is not None:
             keep = next(self.masks)
         else:
-            shape = ((x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-                     if channel else x.shape)
-            keep = torch.rand(shape, generator=self.generator,
-                              device=x.device) < 1.0 - rate
+            rows = parallel.global_batch(x.shape[0])
+            shape = ((rows,) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+                     if channel else (rows, *x.shape[1:]))
+            keep = parallel.local_rows(torch.rand(
+                shape, generator=self.generator,
+                device=x.device)) < 1.0 - rate
         return torch.where(keep, x / (1.0 - rate),
                            torch.zeros((), dtype=x.dtype, device=x.device)
                            ).to(x.dtype)
@@ -264,13 +292,14 @@ class Dropout:
 def drop_path(x, rate: float, generator=None, keep=None):
     """Stochastic depth: each sample's residual branch kept with
     probability 1 - rate (and scaled by 1 / (1 - rate)) or zeroed. `keep`
-    (B, 1, ..., 1) bool replaces the draw from `generator`."""
+    (B, 1, ..., 1) bool replaces the draw from `generator` (of the global
+    batch, cut to the rank's rows)."""
     if rate == 0.0:
         return x
     if keep is None:
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        keep = torch.rand(shape, generator=generator,
-                          device=x.device) < 1.0 - rate
+        shape = (parallel.global_batch(x.shape[0]),) + (1,) * (x.ndim - 1)
+        keep = parallel.local_rows(torch.rand(
+            shape, generator=generator, device=x.device)) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device)
                        ).to(x.dtype)

@@ -12,12 +12,17 @@
 * ``update_stats = False`` leaves the running statistics alone in train
   mode: an EMA teacher normalises by batch statistics as the student does
   but keeps none (the JAX package discards the teacher's mutation).
+* Under a process group the batch is the global one: the moments are
+  summed over the ranks (``parallel.global_sums``, one all-reduce a layer),
+  so every rank normalises by, and keeps, the same statistics.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .. import parallel
 
 
 class FusedBatchNorm(nn.Module):
@@ -35,10 +40,12 @@ class FusedBatchNorm(nn.Module):
     def statistics(self, n: int, train: bool, moments=None):
         """(mean, var) to normalize by: the running statistics in eval
         mode; in train mode those of the batch from its moments (sum x, sum
-        x^2) over n values per channel, folded into the running ones."""
+        x^2) over n values per channel, folded into the running ones: of the
+        global batch under a process group."""
         if not train:
             return self.mean, self.var
-        s1, s2 = moments
+        s1, s2 = parallel.global_sums(*moments)
+        n = parallel.global_batch(n)  # every rank holds n values
         mean, mean2 = s1 / n, s2 / n
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..utils.params import scribblevc_key
 from .layers import (
     BatchNorm,
@@ -325,7 +326,9 @@ def class_memory_update(hf, tf, conv_cls, tran_cls, hist_conv, hist_tran,
     only the old history term is detached: the fresh (1 - w) * rep_masked
     term reaches dh and t_rep, so the injections backpropagate into this
     step's features and logits. The heads' outputs on the prototypes feed
-    argmax tests only and run without a gradient.
+    argmax tests only and run without a gradient. Under a process group the
+    batch means are the global batch's (``parallel.global_sum``), so every
+    rank takes the same gate decisions and keeps the same prototypes.
     """
     b = hf.shape[0]
     ncls = conv_cls.shape[1]
@@ -336,7 +339,8 @@ def class_memory_update(hf, tf, conv_cls, tran_cls, hist_conv, hist_tran,
     def is_class_max(logits):
         return (logits.argmax(1) == classes).float()
 
-    rep = torch.einsum("bi,bhwc->ihwc", conv_cls, hf) / b
+    rep = parallel.global_sum(torch.einsum("bi,bhwc->ihwc", conv_cls, hf)) \
+        / parallel.global_batch(b)
     with torch.no_grad():
         ema = torch.where(init, hw0 * hist_conv + (1 - hw0) * rep, rep)
         is_max = is_class_max(conv_head_fn(ema))
@@ -349,7 +353,8 @@ def class_memory_update(hf, tf, conv_cls, tran_cls, hist_conv, hist_tran,
     weight = torch.where(conv_prob < 0.5, 0.0, conv_prob) * ok
     dh = torch.einsum("ab,bhwc->ahwc", weight, new_hist)
 
-    trep = torch.einsum("bi,bjk->ijk", tran_cls, tf) / b
+    trep = parallel.global_sum(torch.einsum("bi,bjk->ijk", tran_cls, tf)) \
+        / parallel.global_batch(b)
     with torch.no_grad():
         tema = torch.where(init, hw0 * hist_tran + (1 - hw0) * trep, trep)
         t_is_max = is_class_max(trans_head_fn(tema[:, 0]))
@@ -374,7 +379,7 @@ class ScribbleVC(nn.Module):
     """The ACDC ScribbleVC net. ``patch_size`` is the transformer's patch
     (16: a 4x4 patch embedding on the stem's quarter-size map); the input is
     (B, H, W, 1). ``batch_size``: the train batch at which the memory is
-    updated (None: never)."""
+    updated (None: never), the global batch under a process group."""
 
     flax_key = staticmethod(scribblevc_key)  # the flax tree's renaming
 
@@ -496,7 +501,7 @@ class ScribbleVC(nn.Module):
         tran_cls = self._trans_head(t_normed[:, 0])
 
         if use_class_rep and memory is not None and (
-                not train or b == self.batch_size):
+                not train or parallel.global_batch(b) == self.batch_size):
             if train:
                 dh, t_rep, new_hist, new_t_hist = class_memory_update(
                     h.float(), t_normed.float(), conv_cls, tran_cls,

@@ -34,7 +34,8 @@ UNet, UNet_CCT, UNet_CCT_3H, UNet_DS and UNet_URDS.
 Random draws (dropout masks, channel-dropout masks, feature noise, the
 feature-dropout cut) come from the generators in ``rngs`` ({"dropout",
 "feature_perturb"}); the models also take the perturbations' draws
-directly, so tests can inject them.
+directly, so tests can inject them. A per-sample draw is made at the
+global batch's shape and cut to the rank's rows (``parallel.local_rows``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.conv3x3 import conv3x3, conv3x3_stats
 from ..ops.maxpool import max_pool_2x2
 from .layers import upsample_nearest
@@ -107,10 +109,12 @@ def channel_dropout(x, keep, rate: float = 0.5):
 
 
 def channel_dropout_mask(x, generator=None, rate: float = 0.5):
-    """(N,1,...,1,C) bool keep mask, P(keep) = 1 - rate."""
-    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    """(N,1,...,1,C) bool keep mask, P(keep) = 1 - rate (the rank's rows
+    of the global batch's draw)."""
+    shape = ((parallel.global_batch(x.shape[0]),) + (1,) * (x.ndim - 2)
+             + (x.shape[-1],))
     u = torch.rand(shape, generator=generator, device=x.device)
-    return u < (1.0 - rate)
+    return parallel.local_rows(u) < (1.0 - rate)
 
 
 class ConvBlock(nn.Module):
@@ -136,8 +140,9 @@ class ConvBlock(nn.Module):
         x = self._conv_bn(self.conv1, self.bn1, x, train)
         if self.dropout_p > 0 and train:
             keep = 1.0 - self.dropout_p
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            shape = (parallel.global_batch(x.shape[0]), *x.shape[1:])
+            mask = parallel.local_rows(torch.rand(
+                shape, generator=generator, device=x.device)) < keep
             x = x * (mask.to(self.dtype) * (1.0 / keep))
         return self._conv_bn(self.conv2, self.bn2, x, train)
 

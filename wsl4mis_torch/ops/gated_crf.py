@@ -36,6 +36,12 @@ of sum k, at most 1024 * 120 * sum(w) each; the plain loop's per-offset
 sums; the product term): sum k is of order 1e7-1e8 at training sizes,
 where one f32 ulp is 1-8, and the loss is a difference of two such sums.
 The loss comes back as f32.
+
+Under a process group the loss is the global batch's: the Function
+route's per-rank means (each over as many pixels) are averaged over the
+ranks (``parallel.global_mean``), and the plain surface sums its total and
+its denominator over them (``parallel.global_sums``, in f64). The
+contraction itself works within a sample.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from . import _build
 
 DEFAULT_KERNELS_DESC = ({"weight": 1.0, "xy": 6.0, "rgb": 0.1},)
@@ -250,6 +257,7 @@ def gated_crf_loss_plain(probs, image, kernels_desc=DEFAULT_KERNELS_DESC,
         product_cc = torch.einsum("bhwi,bhwj->ij", probs.double(),
                                   prod.double())
         loss = (compat * product_cc).sum()
+    loss, denom = parallel.global_sums(loss, denom.double())
     return (loss / denom).float()
 
 
@@ -377,5 +385,6 @@ def gated_crf_loss(probs, image, kernels_desc=DEFAULT_KERNELS_DESC,
     with torch.no_grad():
         feats, weights, nf_splits, xy = split_features(image, kernels_desc,
                                                        h, w)
-    return _GatedCRF.apply(probs.float().contiguous(), feats, radius,
-                           tuple(weights), tuple(nf_splits), tuple(xy))
+    return parallel.global_mean(_GatedCRF.apply(
+        probs.float().contiguous(), feats, radius, tuple(weights),
+        tuple(nf_splits), tuple(xy)))

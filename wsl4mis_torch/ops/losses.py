@@ -3,6 +3,14 @@
 
 ``logits``/``probs`` are (B, H, W, C) float; ``labels`` (B, H, W) int.
 Scribble supervision marks unannotated pixels with the ignore class 4.
+
+Under a process group the losses the methods use are those of the global
+batch: their sums and counts over the batch go through
+``parallel.global_sums`` and their means through ``parallel.global_mean``
+(without a group both return their input, and the arithmetic is the
+single-process one). ``intensity_variance_losses``, ``size_loss``,
+``focal_loss`` and ``supcon_loss``, which no method calls, stay per
+process.
 """
 
 from __future__ import annotations
@@ -11,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .. import parallel
 
 
 def one_hot(labels, num_classes):
@@ -27,17 +37,18 @@ def cross_entropy(logits, labels, ignore_index: int | None = None):
     logp = F.log_softmax(logits, dim=-1)
     nll = -(logp * one_hot(labels, logits.shape[-1]).to(logp.dtype)).sum(-1)
     if ignore_index is None:
-        return nll.mean()
+        return parallel.global_mean(nll.mean())
     mask = (labels != ignore_index).to(nll.dtype)
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    total, count = parallel.global_sums((nll * mask).sum(), mask.sum())
+    return total / count.clamp(min=1.0)
 
 
 def _soft_dice_all(probs, target, smooth=1e-5):
     """Per-class 1 - (2 sum(pt) + s) / (sum(p^2) + sum(t^2) + s)."""
     axes = tuple(range(probs.ndim - 1))
-    intersect = (probs * target).sum(axes)
-    y_sum = (target * target).sum(axes)
-    z_sum = (probs * probs).sum(axes)
+    intersect, y_sum, z_sum = parallel.global_sums(
+        (probs * target).sum(axes), (target * target).sum(axes),
+        (probs * probs).sum(axes))
     return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
 
 
@@ -60,7 +71,7 @@ def entropy_map(probs):
 
 def entropy_minimization(probs):
     """Unnormalized entropy, mean over pixels."""
-    return entropy_map(probs).mean()
+    return parallel.global_mean(entropy_map(probs).mean())
 
 
 def entropy_loss(probs, num_classes: int):
@@ -81,12 +92,13 @@ def softmax_kl_loss(input_logits, target_logits):
     over elements, not the batch; the target is detached."""
     logp = F.log_softmax(input_logits, dim=-1)
     q = torch.softmax(target_logits, dim=-1).detach()
-    return (q * (torch.log(q.clamp(min=1e-30)) - logp)).mean()
+    return parallel.global_mean(
+        (q * (torch.log(q.clamp(min=1e-30)) - logp)).mean())
 
 
 def symmetric_mse_loss(a, b):
     """mean((a - b)^2), gradients to both sides."""
-    return ((a - b) ** 2).mean()
+    return parallel.global_mean(((a - b) ** 2).mean())
 
 
 def _maxpool3x3(x):
@@ -101,7 +113,7 @@ def tv_loss(probs):
     loss = mean(|contour|). The caller selects the channels."""
     min_pool = -_maxpool3x3(-probs)
     contour = F.relu(_maxpool3x3(min_pool) - min_pool)
-    return contour.abs().mean()
+    return parallel.global_mean(contour.abs().mean())
 
 
 def mumford_shah_loss(image, probs, penalty: str = "l1"):
@@ -117,7 +129,7 @@ def mumford_shah_loss(image, probs, penalty: str = "l1"):
     dw = (probs[:, :, 1:] - probs[:, :, :-1]).abs()
     if penalty == "l2":
         dh, dw = dh * dh, dw * dw
-    return level + dh.sum() + dw.sum()
+    return parallel.global_sum(level + dh.sum() + dw.sum())
 
 
 def intensity_variance_losses(image, probs, num_classes: int):
