@@ -161,14 +161,32 @@ failure:
    fully_supervised against the single process, else a line saying it was
    not run. The data_parallel line holds each case's largest difference a
    leaf class, ms/step, collectives a step and the phase's seconds.
+9. The rest of the JAX package's public surface (the surface line): (a)
+   eval.test_single_volume with phase 5's trained UNet in bf16 over 4
+   phantom volumes, each volume's [dice, hd95] equal to evaluate_fold's
+   (difference 0.0), its launches an eval forward's per chunk, volumes
+   per second; the same weights in f32 on the card against the CPU, the
+   same class on at least 99.9% of the voxels; (b) models.init_model /
+   apply_model on a UNet at batch 24: eval bit for bit the module's own
+   forward (K1, K6 forward), train the same outputs and batch_stats (K2);
+   (c) VNet with batchnorm, groupnorm and instancenorm, timed at
+   2x96x96x96 in bf16 and held to the CPU in f32 at 32^3 (zoo_3d's
+   tolerances; instancenorm's gradient beside the CPU's own spread over
+   thread counts, surface_vnet); (d) utils.save_checkpoint of a card UNet's variables and a
+   bf16 output, load_checkpoint into card tensors: bit for bit; (e)
+   test_scribblevc ACDC --checkpoints over phase 3's checkpoint, phase
+   6's shifted copy and a missing file: MISSING printed, the metrics equal
+   to calculate_metric_percase_spacing at (10, 1, 1) over each one's own
+   predictions.
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
 model's ms and checks, the card), the resume line (resume: each layout's
 save and restore seconds, file MB, chunks, step differences, peak GB,
-the card), the data_parallel line, a per-conv table of the batch-24
-step's conv launches (conv-table lines), the per-kernel JSON line (its
-launches summed over phases 3, 5, 6, 7 and 8), the nvidia-smi line, and
+the card), the data_parallel line, the surface line, a per-conv table of
+the batch-24 step's conv launches (conv-table lines), the per-kernel JSON
+line (its launches summed over phases 3, 5, 6, 7, 8 and 9), the
+nvidia-smi line, and
 last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
@@ -1890,58 +1908,80 @@ def zoo_models(seed, dev="cuda", hw=HW, batch=N, widths=None):
     return recs
 
 
-def zoo_3d(seed, dev="cuda", shape=ZOO_3D_SHAPE, ref_shape=ZOO_3D_REF,
-           widths=None):
-    """Each net_factory_3d model (1 channel, 2 classes, published
-    filters): forward and forward + backward timed at `shape` in bf16;
-    in f32 at `ref_shape`, its eval logits and the gradient of sum(out^2)
-    on the card against the CPU."""
+def check_3d(label, build, seed, dev="cuda", shape=ZOO_3D_SHAPE,
+             ref_shape=ZOO_3D_REF, spread_threads=()):
+    """A 3D net (build(dtype) -> the model on the CPU, the same draws for
+    either dtype): forward and forward + backward timed at `shape` in bf16
+    with the peak memory; in f32 at `ref_shape`, its eval logits and the
+    gradient of sum(out^2) on the card against the CPU (ZOO_EVAL_TOL,
+    ZOO_GRAD_TOL). With spread_threads, the CPU's own gradient spread (its
+    gradient at each of those intra-op thread counts against the default
+    count's) is measured, and the gradient is held to the larger of
+    ZOO_GRAD_TOL and twice it."""
     import copy
 
     import torch
 
-    from wsl4mis_torch.models import net_factory_3d
     from wsl4mis_torch.utils.profiling import measure_fwd_bwd_time
 
+    model = build(torch.bfloat16).to(dev)
+    x = torch.randn(shape, generator=_generator(seed)).to(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fwd_s, fwd_bwd_s = measure_fwd_bwd_time(model, x, n_warmup=1, n_iters=3)
+    rec = {"model": label, "shape": list(shape),
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "fwd_ms": 1e3 * fwd_s, "fwd_bwd_ms": 1e3 * fwd_bwd_s}
+    if dev == "cuda":
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    ref = build(torch.float32).eval()
+    card = copy.deepcopy(ref).to(dev)
+    xs = torch.randn(ref_shape, generator=_generator(seed + 1))
+    outs, grads = [], []
+    for m, xx in ((ref, xs), (card, xs.to(dev))):
+        out = m(xx, train=False)
+        outs.append(out.detach().cpu())
+        grads.append(torch.cat([g.flatten().cpu() for g in
+                                torch.autograd.grad(
+                                    (out ** 2).sum(), m.parameters())]))
+    rec["ref_err"] = rel_max(outs[1], outs[0])
+    rec["grad_err"] = rel_norm(grads[1], grads[0])
+    rec["grad_tol"] = ZOO_GRAD_TOL
+    if spread_threads:
+        threads = torch.get_num_threads()
+        spread = []
+        try:
+            for n in spread_threads:
+                torch.set_num_threads(n)
+                out = ref(xs, train=False)
+                g = torch.cat([g.flatten() for g in torch.autograd.grad(
+                    (out ** 2).sum(), ref.parameters())])
+                spread.append(rel_norm(g, grads[0]))
+        finally:
+            torch.set_num_threads(threads)
+        rec["cpu_spread"] = max(spread)
+        rec["grad_tol"] = max(ZOO_GRAD_TOL, 2 * rec["cpu_spread"])
+    expect(outs[1].shape == ref_shape[:4] + (2,),
+           f"{label}: output {tuple(outs[1].shape)}")
+    expect(rec["ref_err"] <= ZOO_EVAL_TOL
+           and rec["grad_err"] <= rec["grad_tol"],
+           f"{label}: card against CPU {rec['ref_err']}, gradient "
+           f"{rec['grad_err']} (limit {rec['grad_tol']})")
+    return rec
+
+
+def zoo_3d(seed, dev="cuda", shape=ZOO_3D_SHAPE, ref_shape=ZOO_3D_REF,
+           widths=None):
+    """Each net_factory_3d model (1 channel, 2 classes, published
+    filters, or `widths`' kwargs) through check_3d."""
+    from wsl4mis_torch.models import net_factory_3d
+
     widths = widths or {}
-    recs = []
-    for i, name in enumerate(ZOO_3D):
-        kw = widths.get(name, {})
-        model = net_factory_3d(name, 2, dtype=torch.bfloat16,
-                               generator=_generator(seed + i), **kw).to(dev)
-        x = torch.randn(shape, generator=_generator(seed)).to(dev)
-        if dev == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        fwd_s, fwd_bwd_s = measure_fwd_bwd_time(model, x, n_warmup=1,
-                                                n_iters=3)
-        rec = {"model": name, "shape": list(shape),
-               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
-               "fwd_ms": 1e3 * fwd_s, "fwd_bwd_ms": 1e3 * fwd_bwd_s}
-        if dev == "cuda":
-            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        del model
-        ref = net_factory_3d(name, 2, dtype=torch.float32,
-                             generator=_generator(seed + i), **kw).eval()
-        card = copy.deepcopy(ref).to(dev)
-        xs = torch.randn(ref_shape, generator=_generator(seed + 1))
-        outs, grads = [], []
-        for m, xx in ((ref, xs), (card, xs.to(dev))):
-            out = m(xx, train=False)
-            outs.append(out.detach().cpu())
-            grads.append(torch.cat([g.flatten().cpu() for g in
-                                    torch.autograd.grad(
-                                        (out ** 2).sum(), m.parameters())]))
-        rec["ref_err"] = rel_max(outs[1], outs[0])
-        rec["grad_err"] = rel_norm(grads[1], grads[0])
-        expect(outs[1].shape == ref_shape[:4] + (2,),
-               f"zoo {name}: output {tuple(outs[1].shape)}")
-        expect(rec["ref_err"] <= ZOO_EVAL_TOL
-               and rec["grad_err"] <= ZOO_GRAD_TOL,
-               f"zoo {name}: card against CPU {rec['ref_err']}, gradient "
-               f"{rec['grad_err']}")
-        recs.append(rec)
-        del ref, card
-    return recs
+    return [check_3d(name, lambda dtype, i=i, name=name: net_factory_3d(
+        name, 2, dtype=dtype, generator=_generator(seed + i),
+        **widths.get(name, {})), seed, dev, shape, ref_shape)
+        for i, name in enumerate(ZOO_3D)]
 
 
 def synth_efficientnet(model_name, seed):
@@ -3166,6 +3206,324 @@ def dp_phase(seed, card, dev="cuda", hw=HW, cells=DP_CELLS, widths=None,
     return out
 
 
+# ---- phase 9: the rest of the JAX package's public surface -------------------
+
+SURFACE_VOLUMES = 4  # phantom volumes (10 slices, 216x256) test_single_volume scores
+SURFACE_AGREE = 0.999  # f32 predictions, card against CPU: least share of voxels
+SURFACE_CHUNK = 8  # the f32 comparison's slices a forward (the CPU's too)
+VNET_NORMS = ("batchnorm", "groupnorm", "instancenorm")
+VNET_SPREAD_THREADS = (1, 2)  # the CPU's own gradient spread, against its default
+
+
+def _forwards(predictor, volumes):
+    """Eval forwards of predict_volume over each of `volumes`: its slices
+    padded to the bucket, in chunks."""
+    return sum(-(-(-(-v["image"].shape[0] // predictor.bucket)
+                   * predictor.bucket) // predictor.chunk) for v in volumes)
+
+
+def _launched(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def surface_single_volume(unet_path, seed, dev="cuda", hw=HW, widths=None,
+                          n_volumes=SURFACE_VOLUMES):
+    """(a) eval.test_single_volume with a bf16 UNet (the entry phase's
+    trained checkpoint) over phantom volumes: each volume's [dice, hd95]
+    equal to evaluate_fold's on that volume alone and their mean to
+    evaluate_fold's over all, through the same predictor; its launches an
+    eval forward's (eval_counts) per chunk; volumes per second. In f32, the
+    same weights' predictions on the card against the CPU's (SURFACE_AGREE
+    of the voxels)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wsl4mis_torch.data import synthetic_volumes
+    from wsl4mis_torch.eval.val2d import (
+        VolumePredictor,
+        evaluate_fold,
+        test_single_volume,
+    )
+    from wsl4mis_torch.models import net_factory
+    from wsl4mis_torch.utils.checkpoint import load_model_checkpoint
+
+    kw = (widths or {}).get("unet", {})
+    vols = synthetic_volumes(n_volumes, 10, 216, 256, seed=seed + 5)
+    model = net_factory("unet", 4, dtype=torch.bfloat16, **kw).to(dev)
+    load_model_checkpoint(unet_path, model)
+    predictor = VolumePredictor(model, (hw, hw), device=dev)
+    test_single_volume(vols[0]["image"], vols[0]["label"], predictor, 4)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    per = [test_single_volume(v["image"], v["label"], predictor, 4)
+           for v in vols]
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _launched(launch_counts())
+    forwards = _forwards(predictor, vols)
+    expected = {k: v * forwards for k, v in eval_counts("unet").items()}
+    per = np.asarray(per, np.float64)
+    alone = np.stack([evaluate_fold(predictor, [v], 4) for v in vols])
+    mean = evaluate_fold(predictor, vols, 4)
+    rec = {"volumes": n_volumes, "wall_s": wall,
+           "volumes_per_s": n_volumes / wall, "metrics": per.tolist(),
+           "per_volume_diff": float(np.abs(per - alone).max()),
+           "mean_diff": float(np.abs(per.mean(axis=0) - mean).max()),
+           "launches": launches, "expected": expected}
+    expect(rec["per_volume_diff"] == 0.0 and rec["mean_diff"] == 0.0,
+           f"test_single_volume {per.tolist()} against evaluate_fold "
+           f"{alone.tolist()} / {mean.tolist()}")
+    expect(launches == expected,
+           f"test_single_volume launches {launches} != {expected}")
+    expect(np.isfinite(per).all() and per[:, :, 0].max() > 0,
+           f"test_single_volume: {per.tolist()}")
+    ref = net_factory("unet", 4, dtype=torch.float32, **kw)
+    load_model_checkpoint(unet_path, ref)
+    card = copy.deepcopy(ref).to(dev)
+    preds = [VolumePredictor(m, (hw, hw), device=d, chunk=SURFACE_CHUNK)
+             .predict_volume(vols[0]["image"])
+             for m, d in ((card, dev), (ref, "cpu"))]
+    rec["f32_agree"] = float((preds[0] == preds[1]).mean())
+    expect(rec["f32_agree"] >= SURFACE_AGREE,
+           f"test_single_volume f32: {rec['f32_agree']} of the voxels as "
+           f"on the CPU")
+    return rec
+
+
+def surface_apply_model(seed, dev="cuda", hw=HW, batch=N, widths=None):
+    """(b) models.init_model / apply_model on a bf16 UNet: apply_model with
+    init_model's variables, on another module, bit for bit the first
+    module's own forward, eval (K1, K6 forward: eval_counts) and train
+    (K2: the updated batch_stats and the outputs, from the same dropout
+    draws)."""
+    import numpy as np
+    import torch
+
+    from wsl4mis_torch.models import apply_model, init_model, net_factory
+    from wsl4mis_torch.utils.params import _flatten, to_flax_variables
+
+    kw = (widths or {}).get("unet", {})
+
+    def unet(s):
+        return net_factory("unet", 4, dtype=torch.bfloat16,
+                           generator=_generator(s), **kw).to(dev)
+
+    def draws():
+        return torch.Generator(device=dev).manual_seed(seed + 4)
+
+    own, other = unet(seed), unet(seed + 2)
+    variables = init_model(own, _generator(seed + 1))
+    x = torch.randn((batch, hw, hw, 1), generator=_generator(seed + 3)
+                    ).to(dev)
+    with torch.no_grad():
+        want = own(x, train=False)
+        sync(dev)
+        reset_counts()
+        got = apply_model(other, variables, x, train=False)
+        sync(dev)
+    eval_launches = _launched(launch_counts())
+    want_t = own(x, train=True, rngs={"dropout": draws()})
+    want_stats = to_flax_variables(own)["batch_stats"]
+    sync(dev)
+    reset_counts()
+    got_t, got_vars = apply_model(other, variables, x, train=True,
+                                  generator=draws())
+    sync(dev)
+    train_launches = _launched(launch_counts())
+    heads, blocks, _ = _unet_sizes("unet")
+    want_leaves = dict(_flatten(want_stats))
+    got_leaves = dict(_flatten(got_vars["batch_stats"]))
+    stats_equal = want_leaves.keys() == got_leaves.keys() and all(
+        np.array_equal(want_leaves[k], got_leaves[k]) for k in want_leaves)
+    rec = {"batch": batch, "eval_bit_equal": bit_equal(got, want),
+           "train_bit_equal": bit_equal(got_t, want_t),
+           "batch_stats_equal": stats_equal,
+           "batch_stats_leaves": len(got_leaves),
+           "eval_launches": eval_launches,
+           "eval_expected": eval_counts("unet"),
+           "train_launches": train_launches,
+           "train_expected": {"conv3x3_fwd_stats": blocks,
+                              "conv3x3_fwd": heads, "maxpool_fwd": 4}}
+    expect(rec["eval_bit_equal"] and rec["train_bit_equal"]
+           and stats_equal, f"apply_model against the module: {rec}")
+    expect(eval_launches == rec["eval_expected"]
+           and train_launches == rec["train_expected"],
+           f"apply_model launches: {rec}")
+    return rec
+
+
+def surface_vnet(seed, dev="cuda", shape=ZOO_3D_SHAPE, ref_shape=ZOO_3D_REF,
+                 widths=None):
+    """(c) VNet with each of VNET_NORMS through check_3d. Instance norm
+    over the deepest level's 8 voxels a channel (at 32^3) makes the f32
+    gradient ill-conditioned: the CPU against itself moves it by more than
+    ZOO_GRAD_TOL between intra-op thread counts, so that gradient is held
+    beside the CPU's spread (VNET_SPREAD_THREADS; cpu_spread in the
+    surface line)."""
+    from wsl4mis_torch.models import VNet
+
+    kw = (widths or {}).get("vnet", {})
+    return [check_3d(f"vnet {norm}", lambda dtype, norm=norm: VNet(
+        2, normalization=norm, dtype=dtype, generator=_generator(seed + 10),
+        **kw), seed, dev, shape, ref_shape,
+        VNET_SPREAD_THREADS if norm == "instancenorm" else ())
+        for norm in VNET_NORMS]
+
+
+def surface_checkpoint(seed, base, dev="cuda", hw=HW, widths=None):
+    """(d) utils.save_checkpoint of a card UNet's parameters, buffers and a
+    bf16 output, then load_checkpoint into a target of card tensors: every
+    leaf back bit for bit, on the target's device and dtype."""
+    import torch
+
+    from wsl4mis_torch.models import net_factory
+    from wsl4mis_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    kw = (widths or {}).get("unet", {})
+    model = net_factory("unet", 4, dtype=torch.bfloat16,
+                        generator=_generator(seed), **kw).to(dev)
+    x = torch.randn((2, hw, hw, 1), generator=_generator(seed + 1)).to(dev)
+    with torch.no_grad():
+        out = model(x, train=False).to(torch.bfloat16)
+    tree = {"params": dict(model.named_parameters()),
+            "batch_stats": dict(model.named_buffers()), "logits": out}
+    target = {"params": {k: torch.empty_like(v)
+                         for k, v in tree["params"].items()},
+              "batch_stats": {k: torch.empty_like(v)
+                              for k, v in tree["batch_stats"].items()},
+              "logits": torch.empty_like(out)}
+    path = os.path.join(base, "surface.ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_checkpoint(path, target)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    pairs = [(tree[c][k], back[c][k]) for c in ("params", "batch_stats")
+             for k in tree[c]] + [(out, back["logits"])]
+    differing = sum(not (b.device == a.device and b.dtype == a.dtype
+                         and torch.equal(a, b)) for a, b in pairs)
+    rec = {"leaves": len(pairs), "differing": differing,
+           "file_mb": os.path.getsize(path) / 1e6, "save_s": save_s,
+           "load_s": load_s}
+    expect(differing == 0, f"save_checkpoint / load_checkpoint: {rec}")
+    return rec
+
+
+def surface_svc_multi(svc_run, val, dev="cuda"):
+    """(e) test_scribblevc ACDC --checkpoints over the ScribbleVC run's
+    checkpoint, the zoo phase's shifted copy and a missing file, on the
+    phantom volumes (the command's scoring; this machine may lack h5py):
+    MISSING printed; each checkpoint's metrics equal to
+    calculate_metric_percase_spacing(..., MULTI_SPACING) over its own
+    predictions (the select rule, no class memory), difference 0.0; the
+    shifted one predicts foreground, so its HD95 is not 0, and its Dice at
+    the cases' own spacing (the single-checkpoint test's) is the same."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from wsl4mis_torch import cli
+    from wsl4mis_torch.engine.methods.scribblevc import mean_softmax_decision
+    from wsl4mis_torch.eval.infer import load_scribblevc, score_scribblevc
+    from wsl4mis_torch.eval.metrics import calculate_metric_percase_spacing
+    from wsl4mis_torch.eval.val2d import VolumePredictor
+
+    snap = svc_run["snapshot"]
+    names = [f"iter_{svc_run['steps']}.pth", "zoo_shifted.pth",
+             "surface_missing.pth"]
+    args = cli.scribblevc_test_parser("ACDC").parse_args([
+        "--snapshot_root", snap["snapshot_root"], "--exp", snap["exp"],
+        "--fold", snap["fold"], "--sup_type", snap["sup_type"],
+        "--checkpoints", *names, "--device", dev])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        got = cli.scribblevc_test_scores(args, list(val))
+    printed = printed.getvalue()
+    expect(list(got) == names[:2] and f"{names[2]} MISSING" in printed,
+           f"test_scribblevc --checkpoints: {list(got)}, {printed!r}")
+    rec = {"checkpoints": names, "spacing": list(cli.MULTI_SPACING),
+           "missing_printed": True}
+    for name, path in zip(names[:2], cli.scribblevc_checkpoints(args)):
+        model, memory = load_scribblevc(path, args.num_classes,
+                                        args.compute_dtype, dev)
+        preds = VolumePredictor(
+            model, (256, 256), device=dev, decision_fn=mean_softmax_decision,
+            forward_kwargs={"use_class_rep": False}).predict_volumes(
+            [v["image"] for v in val], {"memory": memory})
+        want = np.mean([[calculate_metric_percase_spacing(
+            p == i, v["label"] == i, cli.MULTI_SPACING)
+            for i in range(1, args.num_classes)]
+            for p, v in zip(preds, val)], axis=0)
+        rec[name] = {"metrics": got[name].tolist(),
+                     "diff": float(np.abs(got[name] - want).max())}
+        expect(rec[name]["diff"] == 0.0,
+               f"test_scribblevc --checkpoints {name}: {got[name]} != "
+               f"{want}")
+    shifted = got["zoo_shifted.pth"]
+    own = score_scribblevc(cli.scribblevc_inference_config(args), model,
+                           memory, list(val))
+    rec["shifted_at_case_spacing"] = own.tolist()
+    expect(shifted[:, 1].max() > 0 and np.array_equal(own[:, 0],
+                                                      shifted[:, 0]),
+           f"the shifted checkpoint: {shifted} at (10, 1, 1), {own} at "
+           f"the cases' spacing")
+    return rec
+
+
+def surface_phase(seed, val, card, unet_path, svc_run, dev="cuda",
+                  hw=HW, batch=N, widths=None, shape3d=ZOO_3D_SHAPE,
+                  ref3d=ZOO_3D_REF, n_volumes=SURFACE_VOLUMES):
+    """Phase 9 (after phase 7 left cuDNN deterministic, which this phase
+    resets): surface_single_volume, surface_apply_model, surface_vnet,
+    surface_checkpoint and surface_svc_multi; prints the surface line."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    base = os.path.join(ROOT, "build", "chip_smoke", "surface")
+    os.makedirs(base, exist_ok=True)
+    out = {"card": card,
+           "single_volume": surface_single_volume(unet_path, seed, dev, hw,
+                                                  widths, n_volumes),
+           "apply_model": surface_apply_model(seed, dev, hw, batch, widths),
+           "vnet": surface_vnet(seed, dev, shape3d, ref3d, widths),
+           "checkpoint": surface_checkpoint(seed, base, dev, hw, widths),
+           "svc_multi": surface_svc_multi(svc_run, val, dev)}
+    out["phase_s"] = time.perf_counter() - t0
+    sv, am = out["single_volume"], out["apply_model"]
+    line = {"card": card, "phase_s": out["phase_s"],
+            "test_single_volume": {k: sv[k] for k in (
+                "volumes", "volumes_per_s", "per_volume_diff", "mean_diff",
+                "f32_agree", "launches")},
+            "apply_model": {k: am[k] for k in (
+                "eval_bit_equal", "train_bit_equal", "batch_stats_equal",
+                "eval_launches", "train_launches")},
+            "vnet": [{k: r[k] for k in (
+                "model", "fwd_ms", "fwd_bwd_ms", "peak_gb", "ref_err",
+                "grad_err", "cpu_spread", "grad_tol") if k in r}
+                for r in out["vnet"]],
+            "checkpoint": out["checkpoint"],
+            "test_scribblevc_checkpoints": out["svc_multi"]}
+    print("surface " + json.dumps(line), flush=True)
+    return out
+
+
+def surface_launch_records(surface):
+    """Phase 9's launch counts as records: test_single_volume's run and
+    apply_model's eval and train calls."""
+    am = surface["apply_model"]
+    return [{"launches": surface["single_volume"]["launches"]},
+            {"launches": am["eval_launches"]},
+            {"launches": am["train_launches"]}]
+
+
 # ---- main --------------------------------------------------------------------
 
 
@@ -3591,12 +3949,16 @@ def main(argv=None):
     dp = dp_phase(args.seed, card)
     phase_s["data_parallel"] = (time.perf_counter() - t0
                                 - sum(phase_s.values()))
+    surface = surface_phase(args.seed, val, card,
+                            entry["runs"][0]["inference"]["path"], svc_run)
+    phase_s["surface"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
         "inference"] + [r for r in zoo["models"] if "launches" in r] + (
-        resume["runs"] + [resume["cli"]]) + dp_launch_records(dp)
+        resume["runs"] + [resume["cli"]]) + dp_launch_records(dp) + (
+        surface_launch_records(surface))
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -3611,7 +3973,7 @@ def main(argv=None):
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
-              "data_parallel": dp,
+              "data_parallel": dp, "surface": surface,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

@@ -1057,3 +1057,67 @@ def test_dp_moments_hold_the_first_moments(method, got_g, got_disc,
                                    .norm()), rtol=1e-4)
     _, leaf_fails = chip_smoke.dp_compare(method, got, want, {"w"}, before)
     assert [f.split(" ")[0] for f in leaf_fails] == fails
+
+
+def test_surface_phase_runs_on_the_cpu(narrow_zoo, tmp_path, capsys):
+    """Phase 9 on the CPU at 64x64 (VNet at 16^3, 16 filters: GroupNorm's
+    16 groups), batch 2, a narrow UNet and ScribbleVC: test_single_volume
+    equal to evaluate_fold per volume with an eval forward's calls per
+    chunk; apply_model bit for bit the module's own forward and its
+    batch_stats, with one forward's calls; each VNet normalization; the
+    pytree checkpoint round trip; test_scribblevc --checkpoints with a
+    missing file, at MULTI_SPACING. The checkpoints stand in for phases 3,
+    5 and 6's: a narrow UNet, a narrow bf16 ScribbleVC and its copy with
+    shifted heads."""
+    from wsl4mis_torch.utils.checkpoint import save_model_checkpoint
+
+    val = synthetic_volumes(2, 3, 40, 48, seed=1)
+    unet_path = str(tmp_path / "unet.pth")
+    save_model_checkpoint(unet_path, chip_smoke._as_state(_narrow_factory(
+        "unet", 4, generator=torch.Generator().manual_seed(0))))
+    svc = _narrow_factory("scribblevc", 4, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+    memory = svc.init_memory((256, 256))
+    snap = {"snapshot_root": str(tmp_path / "svc"), "exp": "ACDC",
+            "fold": "fold1", "sup_type": "scribble"}
+    snapdir = tmp_path / "svc" / "ACDC_fold1" / "scribble"
+    state = chip_smoke._as_state(svc)
+    state.extra = {"class_memory": memory}
+    save_model_checkpoint(str(snapdir / "iter_3.pth"), state,
+                          eval_extra=("class_memory",))
+    chip_smoke._svc_shifted(svc, memory, val, "cpu")
+    save_model_checkpoint(str(snapdir / "zoo_shifted.pth"), state,
+                          eval_extra=("class_memory",))
+    widths = {"unet": ZOO_WIDTHS["unet"], "vnet": {"n_filters": 16}}
+    out = chip_smoke.surface_phase(
+        0, val, "cpu", unet_path, {"steps": 3, "snapshot": snap}, dev="cpu",
+        hw=64, batch=2, widths=widths, shape3d=(1, 16, 16, 16, 1),
+        ref3d=(1, 16, 16, 16, 1), n_volumes=2)
+    sv = out["single_volume"]
+    assert sv["per_volume_diff"] == 0.0 and sv["mean_diff"] == 0.0
+    assert sv["f32_agree"] == 1.0
+    # 10 slices: 16 with the bucket's padding, two 8-slice chunks a volume
+    assert sv["launches"] == {"conv3x3_fwd": 19 * 4, "maxpool_fwd": 4 * 4}
+    am = out["apply_model"]
+    assert am["eval_bit_equal"] and am["train_bit_equal"]
+    assert am["batch_stats_equal"] and am["batch_stats_leaves"] == 36
+    assert am["eval_launches"] == am["eval_expected"]
+    assert am["train_launches"] == {"conv3x3_fwd_stats": 18,
+                                    "conv3x3_fwd": 1, "maxpool_fwd": 4}
+    assert [r["model"] for r in out["vnet"]] == [
+        f"vnet {n}" for n in chip_smoke.VNET_NORMS]
+    assert all(r["ref_err"] == 0 for r in out["vnet"])
+    assert out["checkpoint"]["differing"] == 0
+    # 23 kernels and biases (19 convs, 4 transposed), 18 BN scales and
+    # biases; 18 BN means and variances; the bf16 logits
+    assert out["checkpoint"]["leaves"] == 46 + 36 + 36 + 1
+    multi = out["svc_multi"]
+    assert multi["spacing"] == [10.0, 1.0, 1.0]
+    assert multi["iter_3.pth"]["diff"] == 0.0
+    assert multi["zoo_shifted.pth"]["diff"] == 0.0
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("surface "))
+    assert set(json.loads(line.split(" ", 1)[1])) == {
+        "card", "phase_s", "test_single_volume", "apply_model", "vnet",
+        "checkpoint", "test_scribblevc_checkpoints"}
+    assert out["phase_s"] < 60

@@ -563,7 +563,7 @@ def test_chunked_leaves_both_ways_match_flax(tmp_path, monkeypatch):
     flax_file = tmp_path / "flax.ckpt"
     jck.save_checkpoint(str(flax_file), tree)
     port_file = str(tmp_path / "port.ckpt")
-    tck.save_flax_msgpack(port_file, tree)
+    tck.save_checkpoint(port_file, tree)
     raw = _raw(port_file)["b"]
     assert len(raw["big"]["chunks"]) == 16 and len(raw["two"]["chunks"]) == 2
     assert open(port_file, "rb").read() == flax_file.read_bytes()

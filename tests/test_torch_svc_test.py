@@ -12,7 +12,8 @@ softmax of the two heads, no class memory) over the test patients at
 their spacing, and the select-rule validation's per-class Dice
 (evaluate_fold, NaN-aware as ScribbleVC's). A checkpoint without a
 memory scores with zeros, and scores the same, since the rule reads no
-memory. ``--checkpoints`` scores several and reports a missing one.
+memory. ``--checkpoints`` scores several, each at
+test_scribblevc_multi.py's spacing, and reports a missing one.
 
 val_curve reads a log that the port's Trainer wrote: the same points as
 the JAX package's scripts/val_curve.py, and the same printout; the
@@ -223,13 +224,22 @@ def test_checkpoints_flag_scores_each_and_reports_a_missing_one(
         _argv(acdc, tmp_path, "--checkpoints", "a.pth", "gone.pth",
               "b.pth"), "ACDC")
     assert list(out) == ["a.pth", "b.pth"]
-    assert "gone.pth MISSING" in capsys.readouterr().out
-    # the command line, one checkpoint: the same numbers, printed
+    printed = capsys.readouterr().out
+    assert "gone.pth MISSING" in printed
+    # printed as test_scribblevc_multi.py prints it
+    assert f"b.pth mean: {np.round(out['b.pth'].mean(axis=0), 4)}" in printed
+    # the command line, one checkpoint: at the cases' own spacing (the
+    # --checkpoints scores at test_scribblevc_multi.py's), the same Dice,
+    # printed
+    single = cli.scribblevc_test_main(
+        _argv(acdc, tmp_path, "--checkpoint", "b.pth"), "ACDC")
+    np.testing.assert_array_equal(single["b.pth"][:, 0], out["b.pth"][:, 0])
+    capsys.readouterr()
     cli.main(["test_scribblevc", "ACDC",
               *_argv(acdc, tmp_path, "--checkpoint", "b.pth")])
     printed = capsys.readouterr().out
-    assert str(out["b.pth"]) in printed
-    assert str(out["b.pth"].mean(axis=0)) in printed
+    assert str(single["b.pth"]) in printed
+    assert str(single["b.pth"].mean(axis=0)) in printed
 
 
 def test_parsers_keep_the_scripts_defaults():

@@ -15,4 +15,18 @@ through ``engine.methods.get_method(name).build(cfg)`` and
 
 from .utils.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["TrainConfig", "Trainer", "get_method", "net_factory",
+           "resolve_device"]
+
+# name -> module of the lazy exports (PEP 562), as the JAX package's: the
+# package's import loads no engine, model or kernel module
+_LAZY = {"TrainConfig": "engine.config", "Trainer": "engine.trainer",
+         "get_method": "engine.methods", "net_factory": "models"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from importlib import import_module
+
+    return getattr(import_module(f".{_LAZY[name]}", __name__), name)

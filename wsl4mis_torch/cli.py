@@ -8,6 +8,8 @@ package's train and test scripts under ``scripts/``).
     python -m wsl4mis_torch.cli val_curve LOG [LOG ...]
     python -m wsl4mis_torch.cli convert_torch_weights --torch_ckpt PTH --out F
     python -m wsl4mis_torch.cli launch [--suite S] [--methods M] [--folds F]
+    python -m wsl4mis_torch.cli prepare_random_walker [--src D] [--out D]
+    python -m wsl4mis_torch.cli collect_matrix [SNAPSHOT_ROOT]
 
 ``train`` takes a reference train script's name (``train_fully_supervised_2D``,
 ``.py`` optional) or a method name, with that script's defaults
@@ -18,8 +20,11 @@ lr), ``test`` test_2D_fully.py (``--model unet_cct``: test_2D_fully_sps.py),
 ``test_scribblevc`` test_ACDC_scribblevc.py / test_scribblevc.py (and, with
 ``--checkpoints``, test_scribblevc_multi.py), ``val_curve`` val_curve.py and
 ``convert_torch_weights`` convert_torch_weights.py, ``launch``
-scripts/launch_experiments.py (``launch``). Every command that runs a
-model runs on the card unless given ``--device cpu``. ``train
+scripts/launch_experiments.py (``launch``), ``prepare_random_walker``
+scripts/prepare_random_walker.py (an ACDC copy with ``random_walker``
+labels, host scipy) and ``collect_matrix`` scripts/collect_matrix.py (the
+fold-matrix table of the train logs; host only). Every command that runs
+a model runs on the card unless given ``--device cpu``. ``train
 --num_devices N`` trains data-parallel in N processes, one a card
 (``parallel``; None: every visible card; with ``--device cpu``, N gloo
 processes).
@@ -34,20 +39,26 @@ import os
 import re
 import sys
 
+import numpy as np
 import torch
 
 from . import parallel
 from .engine.config import TrainConfig
 from .engine.methods import available_methods, get_method
 from .engine.trainer import Trainer
-from .data.acdc import AcdcVolumeDataset, maag_test_ids, prostate_fold_ids
+from .data.acdc import (
+    AcdcVolumeDataset,
+    default_acdc_root,
+    maag_test_ids,
+    prostate_fold_ids,
+)
 from .eval.infer import (
     InferenceConfig,
     load_scribblevc,
     run_inference,
     score_scribblevc,
 )
-from .utils.checkpoint import load_model_checkpoint, save_flax_msgpack
+from .utils.checkpoint import load_model_checkpoint, save_checkpoint
 
 # The DEFAULTS and METHOD of each scripts/train_*.py of the JAX package,
 # keyed by the script's name.
@@ -411,12 +422,13 @@ def scribblevc_checkpoints(args) -> list[str]:
     return [os.path.join(snapshot, name) for name in names]
 
 
-def scribblevc_test_main(argv, dataset: str) -> dict:
-    """ScribbleVC's offline test on MAAG's 15 test patients (ACDC) or a
-    prostate fold's test patients: {checkpoint: mean (classes-1, 3) [dice,
-    hd95, asd]} (score_scribblevc), each printed; with --checkpoints, a
-    checkpoint the snapshot lacks prints MISSING."""
-    args = scribblevc_test_parser(dataset).parse_args(argv)
+# test_scribblevc_multi.py scores every case at this (sz, sx, sy)
+MULTI_SPACING = (10.0, 1.0, 1.0)
+
+
+def scribblevc_test_volumes(args, dataset: str) -> list:
+    """The offline ScribbleVC test's volumes: MAAG's 15 test patients
+    (ACDC) or a prostate fold's test patients."""
     if dataset == "ACDC":
         volumes = AcdcVolumeDataset(base_dir=args.root_path,
                                     custom_patients=maag_test_ids(),
@@ -427,23 +439,45 @@ def scribblevc_test_main(argv, dataset: str) -> dict:
             custom_patients=prostate_fold_ids(args.fold)[1],
             volumes_dirname="Prostate_training_volumes",
             limit=args.data_limit)
+    return list(volumes)
+
+
+def scribblevc_test_scores(args, volumes) -> dict:
+    """{checkpoint: mean (classes-1, 3) [dice, hd95, asd]} of the parsed
+    flags' checkpoints over `volumes` (score_scribblevc), each printed.
+    With --checkpoints (test_scribblevc_multi.py): every case at
+    MULTI_SPACING, a checkpoint the snapshot lacks printed MISSING, each
+    result printed as that script prints it; else at each case's
+    spacing."""
     icfg = scribblevc_inference_config(args)
-    paths = scribblevc_checkpoints(args)
+    multi = getattr(args, "checkpoints", None) is not None
     results = {}
-    for path in paths:
+    for path in scribblevc_checkpoints(args):
         name = os.path.basename(path)
-        if len(paths) > 1 and not os.path.exists(path):
+        if multi and not os.path.exists(path):
             print(name, "MISSING")
             continue
         model, memory = load_scribblevc(path, args.num_classes,
                                         args.compute_dtype, args.device)
-        avg = score_scribblevc(icfg, model, memory, list(volumes))
-        if len(paths) > 1:
+        avg = score_scribblevc(icfg, model, memory, volumes,
+                               spacing=MULTI_SPACING if multi else None)
+        if multi:
             print(name, "per-class [dice hd95 asd]:")
-        print(avg)
-        print(avg.mean(axis=0), flush=True)
+            print(np.round(avg, 4))
+            print(name, "mean:", np.round(avg.mean(axis=0), 4), flush=True)
+        else:
+            print(avg)
+            print(avg.mean(axis=0), flush=True)
         results[name] = avg
     return results
+
+
+def scribblevc_test_main(argv, dataset: str) -> dict:
+    """test_scribblevc {ACDC,Prostate}: scribblevc_test_scores over
+    scribblevc_test_volumes."""
+    args = scribblevc_test_parser(dataset).parse_args(argv)
+    return scribblevc_test_scores(args, scribblevc_test_volumes(args,
+                                                                dataset))
 
 
 # the Trainer's validation line (engine/trainer.py), also the JAX
@@ -499,8 +533,6 @@ def convert_main(argv=None) -> str:
     """An efficientnet_pytorch state_dict to the flax msgpack encoder file
     that --encoder_weights reads, in either package: {"encoder_params",
     "encoder_batch_stats", "in_channels"}."""
-    import numpy as np
-
     from .utils.params import _flatten
     from .utils.torch_import import convert_efficientnet_encoder
 
@@ -511,13 +543,96 @@ def convert_main(argv=None) -> str:
     sd = {k: v.numpy() for k, v in sd.items() if hasattr(v, "numpy")}
     params, stats = convert_efficientnet_encoder(sd, args.model_name,
                                                  args.in_channels)
-    save_flax_msgpack(args.out, {
+    save_checkpoint(args.out, {
         "encoder_params": params, "encoder_batch_stats": stats,
         "in_channels": np.asarray(args.in_channels, np.int32)})
     n = sum(v.size for _, v in _flatten(params))
     print(f"wrote {args.out}: {n / 1e6:.2f}M encoder params "
           f"({args.model_name}, in_channels={args.in_channels})")
     return args.out
+
+
+def prepare_random_walker_parser() -> argparse.ArgumentParser:
+    """The flags of scripts/prepare_random_walker.py."""
+    p = argparse.ArgumentParser(prog="prepare_random_walker")
+    add = p.add_argument
+    add("--src", type=str, default=None, help="bundled ACDC root")
+    add("--out", type=str, default="data/ACDC_rw")
+    add("--limit", type=int, default=None,
+        help="only copy/process the first N slice files")
+    add("--cases", type=str, default=None,
+        help="comma-separated patient ids (e.g. patient021)")
+    return p
+
+
+def prepare_random_walker_main(argv=None) -> int:
+    """A writable ACDC copy at --out with a ``random_walker`` label in
+    every slice and volume file (data/random_walker.py); the number of
+    slices solved, printed as the script prints it."""
+    from .data.random_walker import prepare_random_walker_tree
+
+    args = prepare_random_walker_parser().parse_args(argv)
+    src = args.src or default_acdc_root()
+    cases = args.cases.split(",") if args.cases else None
+    n = prepare_random_walker_tree(src, args.out, limit=args.limit,
+                                   cases=cases)
+    print(f"done: {n} slices solved -> {args.out}")
+    return n
+
+
+# scripts/collect_matrix.py's match of a validation line (a NaN Dice is
+# none)
+DICE_LINE = re.compile(r"iteration (\d+) : mean_dice : ([0-9.]+)")
+
+
+def cell_stats(log_path: str):
+    """((best val Dice, its iteration), (last val Dice, its iteration)) of
+    a train log; (0.0, 0) where it holds none."""
+    best = last = (0.0, 0)
+    with open(log_path) as f:
+        for line in f:
+            m = DICE_LINE.search(line)
+            if m:
+                it, d = int(m[1]), float(m[2])
+                last = (d, it)
+                if d > best[0]:
+                    best = (d, it)
+    return best, last
+
+
+def collect_matrix_main(root: str = "model/r5_matrix") -> None:
+    """scripts/collect_matrix.py: from {root}/{exp}_{fold}/{sup_type}/
+    log.txt, a markdown table of each method's best val Dice per fold
+    (with its iteration and the final Dice) and their mean +/- std."""
+    import glob
+
+    cells = {}
+    for log in sorted(glob.glob(os.path.join(root, "*", "*", "log.txt"))):
+        run = os.path.basename(os.path.dirname(os.path.dirname(log)))
+        m = re.match(r"(.+)_(fold\d)$", run)
+        if m:
+            cells.setdefault(m[1], {})[m[2]] = cell_stats(log)
+    if not cells:
+        print(f"no cells under {root}")
+        return
+    folds = [f"fold{i}" for i in range(1, 6)]
+    print("| method | " + " | ".join(folds) + " | mean +/- std (best val) |")
+    print("|---|" + "---|" * (len(folds) + 1))
+    for exp in sorted(cells):
+        row, vals = [], []
+        for f in folds:
+            if f in cells[exp]:
+                (b, bi), (last, _) = cells[exp][f]
+                row.append(f"{b:.4f} (it{bi}; fin {last:.4f})")
+                vals.append(b)
+            else:
+                row.append("—")
+        agg = "—"
+        if vals:
+            mean = sum(vals) / len(vals)
+            std = (sum((v - mean) ** 2 for v in vals) / len(vals)) ** 0.5
+            agg = f"{mean:.4f} +/- {std:.4f} ({len(vals)}/5 folds)"
+        print(f"| {exp} | " + " | ".join(row) + f" | {agg} |")
 
 
 def main(argv=None) -> None:
@@ -537,6 +652,10 @@ def main(argv=None) -> None:
         val_curve_main(argv[1:])
     elif command == "convert_torch_weights":
         convert_main(argv[1:])
+    elif command == "prepare_random_walker":
+        prepare_random_walker_main(argv[1:])
+    elif command == "collect_matrix" and len(argv) <= 2:
+        collect_matrix_main(*argv[1:])
     elif command == "launch":
         from . import launch
 

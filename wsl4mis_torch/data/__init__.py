@@ -3,6 +3,7 @@ files and the offline data tools (preprocessing, scribble simulation,
 CTAugment) of the port."""
 
 from .acdc import (
+    ALL_CASES,
     AcdcSliceDataset,
     AcdcVolumeDataset,
     default_acdc_root,
@@ -37,6 +38,7 @@ from .weak_strong import (
 )
 
 __all__ = [
+    "ALL_CASES",
     "OPS",
     "AcdcSliceDataset",
     "AcdcVolumeDataset",

@@ -139,6 +139,9 @@ def fold_ids(fold: str) -> tuple[list[str], list[str]]:
     return _acdc_fold_ids(fold)
 
 
+resolve_fold_ids = fold_ids  # the JAX package's name for every fold kind
+
+
 def labeled_patient_ids(fold: str) -> tuple[list[str], list[str]]:
     """(labeled, unlabeled) train patients of a fold: the labeled ones are
     the multiples of 10 (dataset_semi.py:27-34)."""

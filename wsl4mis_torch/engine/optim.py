@@ -104,6 +104,16 @@ class ReferenceSGD:
                                  "opt_state/1/1/count")
 
 
+def reference_sgd(params, base_lr: float, max_iterations: int,
+                  momentum: float = 0.9, weight_decay: float = 1e-4
+                  ) -> ReferenceSGD:
+    """torch.optim.SGD(momentum=0.9, weight_decay=1e-4) with poly decay
+    over `params` (train_fully_supervised_2D.py:79-80): the JAX package's
+    optax chain of that name, as a ReferenceSGD."""
+    return ReferenceSGD(params, base_lr, max_iterations, momentum,
+                        weight_decay)
+
+
 def adam_init(params: dict[str, torch.Tensor]) -> dict:
     """Adam's state for `params`: the update count and both moments, as
     tensors in dicts (a train state's extra, checkpointed as it is)."""

@@ -100,13 +100,15 @@ def _case_spacing(cfg: InferenceConfig, case: str) -> tuple:
 
 
 def score_volumes(cfg: InferenceConfig, model, volumes, save_dir=None,
-                  decision_fn=None, forward_kwargs=None, variables=None):
+                  decision_fn=None, forward_kwargs=None, variables=None,
+                  spacing=None):
     """(mean (classes-1, 3) [dice, hd95, asd] over `volumes`, their (D, H,
     W) int32 predictions); with save_dir, each case's {case}_pred, _img and
     _gt.nii.gz there, at the case's spacing. volumes: {"case", "image",
     "label"} dicts in memory. decision_fn, forward_kwargs and variables
     go to the validation's VolumePredictor (default: the argmax of the
-    first output)."""
+    first output). spacing: one (sz, sx, sy) for every case, in place of
+    each case's own (_case_spacing)."""
     predictor = VolumePredictor(model, (256, 256), device=cfg.device,
                                 decision_fn=decision_fn,
                                 forward_kwargs=forward_kwargs)
@@ -115,12 +117,12 @@ def score_volumes(cfg: InferenceConfig, model, volumes, save_dir=None,
     totals = np.zeros((cfg.num_classes - 1, 3), np.float64)
     for vol, prediction in zip(volumes, preds):
         case = vol["case"]
-        spacing = _case_spacing(cfg, case)
+        case_spacing = spacing or _case_spacing(cfg, case)
         for i in range(1, cfg.num_classes):
             totals[i - 1] += calculate_metric_percase_spacing(
-                prediction == i, vol["label"] == i, spacing)
+                prediction == i, vol["label"] == i, case_spacing)
         if save_dir is not None:
-            sx_sy_sz = (spacing[1], spacing[2], spacing[0])
+            sx_sy_sz = (case_spacing[1], case_spacing[2], case_spacing[0])
             for suffix, arr in (("pred", prediction), ("img", vol["image"]),
                                 ("gt", vol["label"])):
                 write_nifti(os.path.join(save_dir, f"{case}_{suffix}.nii.gz"),
@@ -174,16 +176,18 @@ def load_scribblevc(path: str, num_classes: int, compute_dtype: str,
     return model, memory
 
 
-def score_scribblevc(cfg: InferenceConfig, model, memory, volumes):
+def score_scribblevc(cfg: InferenceConfig, model, memory, volumes,
+                     spacing=None):
     """ScribbleVC's offline test (test_ACDC_scribblevc.py,
     test_scribblevc.py): the argmax of the two heads' mean softmax without
     the class memory, the ScribbleVC bundle's select predictor, so a
     checkpoint's Dice equals its select-rule validation's; mean (classes-1,
-    3) [dice, hd95, asd] at the cases' spacing."""
+    3) [dice, hd95, asd] at the cases' spacing, or at `spacing` (sz, sx,
+    sy) for every case (the --checkpoints test's, cli.MULTI_SPACING)."""
     from ..engine.methods.scribblevc import mean_softmax_decision
 
     avg, _ = score_volumes(cfg, model, volumes,
                            decision_fn=mean_softmax_decision,
                            forward_kwargs={"use_class_rep": False},
-                           variables={"memory": memory})
+                           variables={"memory": memory}, spacing=spacing)
     return avg

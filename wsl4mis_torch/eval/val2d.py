@@ -122,6 +122,23 @@ def _argmax_decision(out):
     return out.argmax(-1)
 
 
+def volume_metrics(pred: np.ndarray, label, classes: int,
+                   metric_fn=calculate_metric_percase) -> list:
+    """metric_fn(pred == i, label == i) for each foreground class i."""
+    label = np.asarray(label)
+    return [metric_fn(pred == i, label == i) for i in range(1, classes)]
+
+
+def test_single_volume(image, label, predictor: VolumePredictor,
+                       classes: int, metric_fn=calculate_metric_percase):
+    """Per-class [dice, hd95] of one volume (val_2D.py:18-50) through
+    predictor.predict_volume. The JAX package's function also takes the
+    model's variables; the port's predictor holds its model, so it takes
+    none."""
+    return volume_metrics(predictor.predict_volume(image), label, classes,
+                          metric_fn)
+
+
 def evaluate_fold(predictor: VolumePredictor, volumes, classes: int,
                   nan_aware: bool = False, variables=None) -> np.ndarray:
     """Mean over volumes of the (classes-1, 2) per-class [dice, hd95];
@@ -133,10 +150,8 @@ def evaluate_fold(predictor: VolumePredictor, volumes, classes: int,
     preds = predictor.predict_volumes([vol["image"] for vol in volumes],
                                       variables)
     per_volume = np.asarray([
-        [metric(pred == i, np.asarray(vol["label"]) == i)
-         for i in range(1, classes)]
-        for pred, vol in zip(preds, volumes)
-    ], np.float64)
+        volume_metrics(pred, vol["label"], classes, metric)
+        for pred, vol in zip(preds, volumes)], np.float64)
     return nanmean(per_volume) if nan_aware else per_volume.mean(axis=0)
 
 

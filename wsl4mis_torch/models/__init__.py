@@ -6,7 +6,13 @@ blocks."""
 
 from .discriminator import FC3DDiscriminator, FCDiscriminator
 from .efficientunet import EffiUNet
-from .factory import MODEL_NUM_OUTPUTS, PERTURBED_MODELS, net_factory
+from .factory import (
+    MODEL_NUM_OUTPUTS,
+    PERTURBED_MODELS,
+    apply_model,
+    init_model,
+    net_factory,
+)
 from .nets3d import (
     AttentionUNet3D,
     UNet3D,
@@ -17,11 +23,21 @@ from .nets3d import (
 from .norm import FusedBatchNorm
 from .pnet import PNet2D
 from .scribblevc import ScribbleVC
-from .unet import UNet, UNetCCT, UNetCCT3H, UNetDS, UNetURDS
+from .unet import (
+    UNet,
+    UNetCCT,
+    UNetCCT3H,
+    UNetDS,
+    UNetURDS,
+    channel_dropout,
+    feature_dropout,
+    feature_noise,
+)
 
 __all__ = ["AttentionUNet3D", "EffiUNet", "FC3DDiscriminator",
            "FCDiscriminator",
            "FusedBatchNorm", "MODEL_NUM_OUTPUTS", "PERTURBED_MODELS",
            "PNet2D", "ScribbleVC", "UNet", "UNet3D", "UNetCCT", "UNetCCT3H",
-           "UNetDS", "UNetURDS", "VNet", "VoxResNet", "net_factory",
-           "net_factory_3d"]
+           "UNetDS", "UNetURDS", "VNet", "VoxResNet", "apply_model",
+           "channel_dropout", "feature_dropout", "feature_noise",
+           "init_model", "net_factory", "net_factory_3d"]

@@ -1,10 +1,20 @@
 """Model factory (port of ``wsl4mis_tpu/models/factory.py``): the 2D zoo
-of the JAX package's ``net_factory`` and ScribbleVC."""
+of the JAX package's ``net_factory`` and ScribbleVC, and ``init_model`` /
+``apply_model``, the JAX package's functional calls over flax variable
+trees."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..utils.params import (
+    flax_naming,
+    load_flax_variables,
+    to_flax,
+    to_flax_variables,
+)
 from .efficientunet import EffiUNet
 from .pnet import PNet2D
 from .scribblevc import ScribbleVC
@@ -49,5 +59,44 @@ def net_factory(net_type: str = "unet", class_num: int = 4,
                        f"{sorted(_REGISTRY)}") from None
     if net_type == "efficient_unet":
         kwargs.setdefault("encoder_name", "efficientnet-b3")
-    return cls(num_classes=class_num, dtype=dtype, generator=generator,
-               **kwargs)
+    model = cls(num_classes=class_num, dtype=dtype, generator=generator,
+                **kwargs)
+    model.rebuild = functools.partial(net_factory, net_type, class_num,
+                                      dtype, **kwargs)
+    return model
+
+
+def init_model(model, generator=None, input_shape=(1, 256, 256, 1)) -> dict:
+    """Draw `model`'s parameters anew from `generator` (a CPU
+    torch.Generator; None: the global one), with the initializers its
+    construction used, in place (BN statistics back to 0 / 1), and return
+    them as flax's {"params", "batch_stats"} trees of numpy arrays, the
+    variables the JAX package's init_model gives and its apply_model takes.
+    The model must come from net_factory or net_factory_3d (its `rebuild`).
+    input_shape is the JAX signature's: the port's modules size their
+    parameters at construction, so it is not read."""
+    rebuild = getattr(model, "rebuild", None)
+    if rebuild is None:
+        raise TypeError(f"{type(model).__name__} was not built by "
+                        f"net_factory / net_factory_3d: nothing to re-draw "
+                        f"it with")
+    model.load_state_dict(rebuild(generator=generator).state_dict())
+    return to_flax_variables(model)
+
+
+def apply_model(model, variables, x, *, train: bool, generator=None):
+    """`model` with flax `variables` ({"params", "batch_stats"}, loaded into
+    it, strictly) on x: the outputs; with train=True, (outputs,
+    {"batch_stats": the updated statistics}) as flax's mutable apply
+    returns them (the model keeps them too). generator: the train-mode
+    draws (dropout, feature perturbation), as rngs["dropout"] and
+    rngs["feature_perturb"]."""
+    load_flax_variables(model, variables)
+    kwargs = {}
+    if generator is not None:
+        kwargs["rngs"] = {"dropout": generator, "feature_perturb": generator}
+    out = model(x, train=train, **kwargs)
+    if not train:
+        return out
+    return out, {"batch_stats": to_flax(dict(model.named_buffers()),
+                                        flax_naming(model))}

@@ -12,6 +12,8 @@ EfficientNet-UNet, the 3D nets, the legacy GAN), channels-last.
 * ``BatchNorm``: flax ``nn.BatchNorm(dtype=float32)``: statistics in f32
   (one-pass variance), output in f32; the caller casts, after its
   activation where the JAX module does so.
+* ``GroupNorm``: flax ``nn.GroupNorm(dtype=float32)`` (eps 1e-6, one-pass
+  variance, per-channel scale and bias), output in f32.
 * ``instance_norm``, ``interp_axis`` (1D linear interpolation, weights in
   the input's dtype), ``upsample_nearest`` (integer factor, source index
   i // f), ``drop_path`` (stochastic depth), ``Dropout`` (element or
@@ -197,6 +199,37 @@ class BatchNorm(FusedBatchNorm):
                                     moments)
         return (xf - mean) * (self.scale * torch.rsqrt(var + self.epsilon)) \
             + self.bias
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm(num_groups, dtype=float32) over channels-last x:
+    per sample and group of channels, the mean and one-pass variance
+    (E[x^2] - E[x]^2, floored at 0) of x in f32 over the spatial dims and
+    the group's channels; output (x - mean) * (rsqrt(var + eps) * scale)
+    + bias in f32, as flax orders it; the caller casts."""
+
+    def __init__(self, features: int, num_groups: int = 32,
+                 epsilon: float = 1e-6):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{features} channels")
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        xf = x.float()
+        g = xf.reshape(*x.shape[:-1], self.num_groups, -1)
+        dims = tuple(range(1, g.ndim - 2)) + (g.ndim - 1,)
+        mean = g.mean(dims, keepdim=True)
+        var = ((g * g).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
+        size = x.shape[-1] // self.num_groups
+        mean = mean.flatten(-2).repeat_interleave(size, -1)
+        var = var.flatten(-2).repeat_interleave(size, -1)
+        return (xf - mean) * (torch.rsqrt(var + self.epsilon)
+                              * self.scale) + self.bias
 
 
 def instance_norm(x, eps: float = 1e-5):

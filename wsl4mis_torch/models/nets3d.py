@@ -8,15 +8,17 @@ NDHWC, built by ``net_factory_3d``:
 * AttentionUNet3D: the same trunk with grid-attention gated skips (two
   gates fused by 1x1x1 conv + BN + ReLU) and deep supervision (1x1x1 heads
   upsampled trilinearly, fused by a last 1x1x1 conv).
-* VNet: five levels of (1, 2, 3, 3, 3) conv + BN + ReLU stages, stride-2
-  2x2x2 conv down, transposed conv up, additive skips, channel dropout 0.5
-  on the deepest and the last features.
+* VNet: five levels of (1, 2, 3, 3, 3) conv + norm + ReLU stages,
+  stride-2 2x2x2 conv down, transposed conv up, additive skips, channel
+  dropout 0.5 on the deepest and the last features; the norm is BatchNorm
+  (net_factory_3d's), GroupNorm (16 groups), InstanceNorm or none.
 * VoxResNet: pre-activation residual blocks (InstanceNorm + ReLU + 3x3x3
   conv, bias-free) at three scales, trilinear (align_corners) upsampling.
 
 Numerics follow the JAX package: InstanceNorm is torch's affine-free one
 (f32 statistics, ``layers.instance_norm``); BatchNorm is flax's (f32,
-momentum 0.9, eps 1e-5), cast before the ReLU; trilinear upsampling is
+momentum 0.9, eps 1e-5), cast before the ReLU, and GroupNorm flax's (f32,
+eps 1e-6, ``layers.GroupNorm``); trilinear upsampling is
 ``layers.interp_axis`` along each axis in turn; kernels are kaiming-normal
 (fan in) in flax's DHWIO layout, biases zero. The convolutions are
 cuDNN's (``F.conv3d``; 1x1x1: matmuls), as they are XLA's in the JAX
@@ -30,6 +32,8 @@ given as ``drop_masks``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +44,7 @@ from .layers import (
     Conv,
     ConvTranspose,
     Dropout,
+    GroupNorm,
     instance_norm,
     interp_axis,
 )
@@ -236,61 +241,82 @@ class AttentionUNet3D(_Trunk):
 
 # (stages, filter multiple) of VNet's encoder levels; the decoder mirrors
 _VNET_LEVELS = ((1, 1), (2, 2), (3, 4), (3, 8), (3, 16))
+# VNet's module list of each normalization with parameters
+_NORM_LISTS = {"batchnorm": "batch_norm", "groupnorm": "group_norm"}
 
 
 class VNet(nn.Module):
-    """BatchNorm VNet (net_factory_3d's); the modules in flax's order: per
-    level its down conv (levels 2-5), then its stage convs, each conv with
-    its BatchNorm; per decoder level the transposed conv (with its BN),
-    then its stages; the 1x1x1 head."""
+    """VNet; the modules in flax's order: per level its down conv (levels
+    2-5), then its stage convs, each conv with its norm; per decoder level
+    the transposed conv (with its norm), then its stages; the 1x1x1 head.
+    normalization: "batchnorm" (net_factory_3d's; flax's BatchNorm_k, in
+    ``batch_norm``), "groupnorm" (GroupNorm_k, 16 groups, in
+    ``group_norm``), "instancenorm" (instance_norm, no parameters) or any
+    other string, none, as in the JAX package."""
 
     flax_key = staticmethod(zoo_key)
 
     def __init__(self, num_classes: int = 2, n_filters: int = 16,
-                 has_dropout: bool = True, dtype=torch.bfloat16,
-                 in_ch: int = 1, generator=None):
+                 normalization: str = "batchnorm", has_dropout: bool = True,
+                 dtype=torch.bfloat16, in_ch: int = 1, generator=None):
         super().__init__()
         self.dtype = dtype
+        self.normalization = normalization
         self.has_dropout = has_dropout
+        layer = {"batchnorm": BatchNorm,
+                 "groupnorm": lambda c: GroupNorm(c, num_groups=16)}.get(
+            normalization)
         kw = dict(dtype=dtype, generator=generator)
-        convs, bns, ups = [], [], []
+        convs, norms, ups = [], [], []
         ch = in_ch
         for level, (stages, mult) in enumerate(_VNET_LEVELS):
             feat = n_filters * mult
             if level:
                 convs.append(_conv3(ch, feat, _one(2), 2, padding="VALID",
                                     **kw))
-                bns.append(BatchNorm(feat))
+                norms.append(feat)
                 ch = feat
             for _ in range(stages):
                 convs.append(_conv3(ch, feat, **kw))
-                bns.append(BatchNorm(feat))
+                norms.append(feat)
                 ch = feat
         for stages, mult in _VNET_LEVELS[-2::-1]:
             feat = n_filters * mult
             ups.append(ConvTranspose(ch, feat, _one(2), 2, init="kaiming",
                                      **kw))
-            bns.append(BatchNorm(feat))
+            norms.append(feat)
             for _ in range(stages):
                 convs.append(_conv3(feat, feat, **kw))
-                bns.append(BatchNorm(feat))
+                norms.append(feat)
             ch = feat
         convs.append(_conv3(ch, num_classes, _one(), **kw))
         self.conv3 = nn.ModuleList(convs)
-        self.batch_norm = nn.ModuleList(bns)
+        if layer is not None:
+            setattr(self, _NORM_LISTS[normalization],
+                    nn.ModuleList(layer(c) for c in norms))
         self.conv_transpose = nn.ModuleList(ups)
 
     def forward(self, x, train: bool = False, rngs=None,
                 turnoff_drop: bool = False, drop_masks=None):
         """drop_masks: optional two (N,1,1,1,C) keep masks (the deepest and
         the last features) in place of the draws from rngs["dropout"]."""
-        convs, bns = iter(self.conv3), iter(self.batch_norm)
-        ups = iter(self.conv_transpose)
+        convs, ups = iter(self.conv3), iter(self.conv_transpose)
+        name = _NORM_LISTS.get(self.normalization)
+        norms = iter(getattr(self, name) if name else ())
         drop = Dropout(_gen(rngs, "dropout"), drop_masks)
         dropping = self.has_dropout and train and not turnoff_drop
 
+        def norm(z):
+            if self.normalization == "batchnorm":
+                return next(norms)(z, train)
+            if self.normalization == "groupnorm":
+                return next(norms)(z)
+            if self.normalization == "instancenorm":
+                return instance_norm(z)
+            return z
+
         def norm_relu(z):
-            return F.relu(next(bns)(z, train).to(self.dtype))
+            return F.relu(norm(z).to(self.dtype))
 
         def stages(z, n):
             for _ in range(n):
@@ -373,5 +399,8 @@ def net_factory_3d(net_type: str = "unet_3D", class_num: int = 2,
     except KeyError:
         raise KeyError(f"unknown 3D net_type {net_type!r}; available: "
                        f"{sorted(classes)}") from None
-    return cls(num_classes=class_num, dtype=dtype, generator=generator,
-               **kwargs)
+    model = cls(num_classes=class_num, dtype=dtype, generator=generator,
+                **kwargs)
+    model.rebuild = functools.partial(net_factory_3d, net_type, class_num,
+                                      dtype, **kwargs)
+    return model

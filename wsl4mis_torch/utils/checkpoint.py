@@ -23,9 +23,12 @@ run in flight in the JAX package continues in the port.
 the JAX package's ``restore_train_state`` loads. ``msgpack`` is imported
 only when a JAX file is read or written.
 
-``save_flax_msgpack`` writes a tree of dicts of numpy arrays as flax's
-``serialization.to_bytes`` does, leaves over ``MAX_CHUNK_BYTES`` split
-into flax's chunk dicts; ``load_jax_checkpoint`` joins them.
+``save_checkpoint`` / ``load_checkpoint`` are the JAX package's pytree
+checkpoints: ``save_checkpoint`` writes a tree of dicts (lists, tuples)
+of numpy arrays or tensors as flax's ``serialization.to_bytes`` does,
+leaves over ``MAX_CHUNK_BYTES`` split into flax's chunk dicts;
+``load_jax_checkpoint`` reads such a file and joins them, and
+``load_checkpoint`` also restores it into a target's structure.
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ def restore_jax_train_state(path: str, state) -> None:
 
 def save_jax_train_state(path: str, state) -> None:
     """Write `state` as the JAX package's ``save_train_state`` does."""
-    save_flax_msgpack(path, state.jax_tree())
+    save_checkpoint(path, state.jax_tree())
 
 
 def _flax_array(data: bytes) -> np.ndarray:
@@ -131,11 +134,16 @@ def _flax_ext(code: int, data: bytes):
     raise ValueError(f"unknown msgpack ext type {code} in a flax checkpoint")
 
 
+class _Bf16(np.ndarray):
+    """A bfloat16 tensor's bits (uint16), written as flax writes bfloat16."""
+
+
 def _flax_ndarray_bytes(x: np.ndarray) -> bytes:
     import msgpack
 
+    name = "bfloat16" if isinstance(x, _Bf16) else x.dtype.name
     data = memoryview(np.ascontiguousarray(x).reshape(-1).view(np.uint8))
-    return msgpack.packb((x.shape, x.dtype.name, data), use_bin_type=True)
+    return msgpack.packb((x.shape, name, data), use_bin_type=True)
 
 
 def _flax_ext_pack(x):
@@ -146,17 +154,30 @@ def _flax_ext_pack(x):
     raise TypeError(f"cannot write {type(x)} into a flax msgpack file")
 
 
-def _sorted_tree(tree):
+def _state_dict(tree):
+    """flax's to_state_dict of the JAX package's host tree (jax.tree.map
+    of np.asarray): a dict's keys as str in sorted order, a list or tuple
+    as {"0": ...} in order, None kept, every other leaf a numpy array (a
+    tensor's on the host; bfloat16 as its bits)."""
     if isinstance(tree, dict):
-        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
-    return tree
+        return {str(k): _state_dict(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).view(_Bf16)
+        return t.numpy()
+    return np.asarray(tree)
 
 
 def _chunked(x: np.ndarray) -> dict:
     """flax's serialization._chunk: the flat array in pieces of
     MAX_CHUNK_BYTES (views), keyed "0".."n-1", with the shape."""
     size = max(1, MAX_CHUNK_BYTES // x.dtype.itemsize)
-    flat = np.ascontiguousarray(x).reshape(-1)
+    flat = x.reshape(-1)  # keeps a _Bf16's tag on its pieces
     return {_CHUNKED: True,
             "shape": {str(i): int(d) for i, d in enumerate(x.shape)},
             "chunks": {str(i): flat[s:s + size] for i, s in
@@ -178,18 +199,19 @@ def _write_tree(f, packer, tree) -> None:
         f.write(packer.pack(tree))
 
 
-def save_flax_msgpack(path: str, tree: dict) -> None:
-    """A nested dict (str keys) of numpy arrays (0-d for a scalar) or None
-    as flax's msgpack: its ndarray ext type, each dict's keys in sorted
-    order (flax's state dicts), a leaf over MAX_CHUNK_BYTES in flax's
-    chunks, so the bytes are the JAX package's save_checkpoint's."""
+def save_checkpoint(path: str, tree) -> None:
+    """`tree` (nested dicts, lists, tuples; numpy arrays, tensors, numbers
+    or None) as the JAX package's save_checkpoint writes it: flax's msgpack
+    of its state dict (_state_dict), a leaf over MAX_CHUNK_BYTES in
+    flax's chunks, the same bytes; written to path + ".tmp" a dict entry
+    at a time and renamed into place."""
     import msgpack
 
     packer = msgpack.Packer(default=_flax_ext_pack, strict_types=True)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        _write_tree(f, packer, _sorted_tree(tree))
+        _write_tree(f, packer, _state_dict(tree))
     os.replace(tmp, path)
 
 
@@ -228,6 +250,46 @@ def load_jax_checkpoint(path: str) -> dict:
                                           access=mmap.ACCESS_READ) as data:
         tree = msgpack.unpackb(data, ext_hook=_flax_ext, raw=False)
     return _join_chunks(tree)
+
+
+def _restore(target, state, where: str):
+    """`state` (a file's tree) in `target`'s structure: a dict's keys must
+    be the state's (a missing or an extra one raises), a list's or tuple's
+    length its; a tensor leaf comes back a tensor of the target's shape
+    on its device and dtype, any other leaf as the file holds it."""
+    if isinstance(target, dict):
+        keys = {str(k) for k in target}
+        if not isinstance(state, dict) or keys != state.keys():
+            have = sorted(state) if isinstance(state, dict) else type(state)
+            raise ValueError(f"{where}: the target's keys {sorted(keys)} "
+                             f"are not the checkpoint's {have}")
+        return {k: _restore(v, state[str(k)], f"{where}/{k}")
+                for k, v in target.items()}
+    if isinstance(target, (list, tuple)):
+        if not isinstance(state, dict) or len(state) != len(target):
+            raise ValueError(f"{where}: {len(target)} entries in the "
+                             f"target, not the checkpoint's")
+        out = [_restore(v, state[str(i)], f"{where}/{i}")
+               for i, v in enumerate(target)]
+        return type(target)(out)
+    if isinstance(target, torch.Tensor):
+        arr = np.asarray(state)
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{where}: shape {arr.shape} in the checkpoint, "
+                             f"{tuple(target.shape)} in the target")
+        return torch.from_numpy(np.array(arr)).to(device=target.device,
+                                                  dtype=target.dtype)
+    return state
+
+
+def load_checkpoint(path: str, target=None):
+    """A flax msgpack checkpoint (the JAX package's save_checkpoint, or
+    save_checkpoint here): without `target`, the nested dicts of numpy
+    arrays that flax's msgpack_restore gives (chunks joined); with one, the
+    tree in the target's structure (_restore). flax's from_bytes drops a
+    key the target lacks; here it raises, as a missing one does."""
+    tree = load_jax_checkpoint(path)
+    return tree if target is None else _restore(target, tree, "")
 
 
 def load_model_checkpoint(path: str, model: torch.nn.Module,

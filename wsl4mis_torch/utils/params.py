@@ -47,7 +47,7 @@ its inverse (``torch_path``, ``scribblevc_path``, ``zoo_path``), and every
 path it gives is held to the forward renaming. UNet_DS and UNet_URDS name
 their decoder's flax scope (``flax_decoder``); ``zoo_path`` knows the
 module kinds of the 2D zoo (PNet2D, EffiUNet), the models a train state
-holds.
+holds, and of the 3D nets (``models.init_model`` returns their trees).
 """
 
 from __future__ import annotations
@@ -258,15 +258,18 @@ def scribblevc_path(name: str) -> tuple[str, ...]:
     return tuple(out)
 
 
-# the flax module kinds of the 2D zoo's zoo_key models (PNet2D, EffiUNet)
+# the flax module kinds of the zoo_key models: PNet2D, EffiUNet, the 3D nets
 _ZOO_KINDS = {_snake(k): k for k in (
     "PNetBlock", "DilatedConv", "TorchConv", "BatchNorm", "Conv",
-    "EfficientNetEncoder", "MBConv", "DecoderBlock")}
+    "EfficientNetEncoder", "MBConv", "DecoderBlock", "Conv3",
+    "ConvTranspose", "GroupNorm", "UnetConv3", "UnetUp3CT",
+    "GridAttentionBlock3D", "MultiAttentionBlock", "VoxRex")}
 
 
 def zoo_path(name: str) -> tuple[str, ...]:
     """The flax path that ``zoo_key`` renames to `name` (a module of the
-    2D zoo: ``kind.k`` -> ``Kind_k``, and a wrapper kind's inner Conv_0)."""
+    2D zoo or a 3D net: ``kind.k`` -> ``Kind_k``, and a wrapper kind's
+    inner Conv_0)."""
     t = name.split(".")
     out: list[str] = []
     i = 0
@@ -338,8 +341,9 @@ def named_from_flax(tree, key=None) -> dict[str, torch.Tensor]:
 def to_flax(named: dict[str, torch.Tensor],
             naming: FlaxNaming | None = None) -> dict:
     """Tensors by state_dict name -> a flax tree of numpy arrays (the
-    inverse of named_from_flax). A name whose flax path the forward
-    renaming does not take back to it raises KeyError naming it."""
+    inverse of named_from_flax), copies that share no memory with the
+    tensors. A name whose flax path the forward renaming does not take
+    back to it raises KeyError naming it."""
     naming = naming or flax_naming()
     tree: dict = {}
     for name, t in named.items():
@@ -350,7 +354,8 @@ def to_flax(named: dict[str, torch.Tensor],
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(t.detach().cpu().numpy())
+        node[path[-1]] = np.ascontiguousarray(
+            t.detach().to("cpu", copy=True).numpy())
     return tree
 
 
