@@ -34,11 +34,11 @@ failure:
    also runs in all four roles at the ragged shapes of
    tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
    and every batch-24 bf16 conv launch is repeated and must be bit-equal.
-   The host time of one call of each conv wrapper, the augment wrapper at
-   batch 24, its S2L variant at 12 and the GatedCRF wrapper at batch 6 is
-   recorded (wrapper_host_us), and one call of each of the last three
-   runs under torch.cuda.set_sync_debug_mode("error"): a host-device sync
-   fails the run. The batch-24 bf16 launches (GatedCRF: batch 6, its
+   The host time of one call of each conv and pool wrapper, the augment
+   wrapper at batch 24, its S2L variant at 12 and the GatedCRF wrapper at
+   batch 6 is recorded (wrapper_host_us), and one call of each runs under
+   torch.cuda.set_sync_debug_mode("error"): a host-device sync fails the
+   run. The batch-24 bf16 launches (GatedCRF: batch 6, its
    training batch, and 24; f32; the S2L augment: batch 12) are timed:
    CUDA-event medians of 12 calls after 3 warm-up calls (the augment and
    GatedCRF calls also in a torch.profiler trace of 10 calls: the
@@ -178,15 +178,38 @@ failure:
    6's shifted copy and a missing file: MISSING printed, the metrics equal
    to calculate_metric_percase_spacing at (10, 1, 1) over each one's own
    predictions.
+10. The K-step call (``--steps_per_call``, engine.graph.CapturedStep;
+   the captured line): for each of the nine methods whose step takes no
+   decision on the host, at its phase-3 cell (fully_supervised, pce,
+   pce_random_walker, pce_tv, pce_entropy_mini, pce_intensity_variance at
+   batch 24, pce_mumford_shah at 12, dmpls and pce_gatedcrf at 6), from
+   one state, 4 eager steps and one 4-step call replaying the captured
+   step end bit-equal in every leaf and in the metrics; the wrappers'
+   counters show the warm-up and the capture (WARMUP_STEPS + 1 steps'
+   launches), and a trace of 2 calls shows per_step_counts x 4 launches a
+   call of every kernel (the same count over 8 eager steps checks the
+   trace's reading); ms/step eager against captured over 20 steps,
+   device busy share, capture seconds and peak GB. Each of the other
+   eight (the semi family, ustm, s2l, scribblevc) runs one 4-step call
+   through the Trainer uncaptured, its reason in the Trainer and its log.
+   Then the train command, fully_supervised batch 24, --steps_per_call 4
+   --val_every 200 over 200 steps: the call captured, one validation at
+   200 whose Dice equals phase 5's eager run of the same argv (the same
+   state, bit for bit), the checkpoints. Last, --profile_steps 4 at K =
+   2 (fs b24, 14 steps): the trace file holds the replays' kernels, 4
+   steps' per_step_counts less at most one step's (a trace can lose the
+   first launches after its window opens; phase 10's own windows read
+   their launches between two marker kernels, after a padding step).
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
 model's ms and checks, the card), the resume line (resume: each layout's
 save and restore seconds, file MB, chunks, step differences, peak GB,
-the card), the data_parallel line, the surface line, a per-conv table of
-the batch-24 step's conv launches (conv-table lines), the per-kernel JSON
-line (its launches summed over phases 3, 5, 6, 7, 8 and 9), the
-nvidia-smi line, and
+the card), the data_parallel line, the surface line, the captured line,
+a per-conv table of the batch-24 step's conv launches (conv-table
+lines), the per-kernel JSON line (its launches summed over phases 3 and
+5-10; phase 10's counted by the wrappers: the warm-up's and the
+capture's), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
@@ -3524,6 +3547,419 @@ def surface_launch_records(surface):
             {"launches": am["train_launches"]}]
 
 
+# ---- phase 10: the K-step call, a captured CUDA graph -----------------------
+
+
+CAPTURE_K = 4  # steps a call
+CAPTURE_TIMED = 20  # steps timed eagerly and captured, after the warm-up
+CAPTURE_TRACED = 2  # calls (of CAPTURE_K steps) in each profile window
+CAPTURE_CLI_STEPS = 200  # the train command's run: one validation, at 200
+# the nine methods whose K-step call is captured, at their phase-3 cells:
+# (method, model, batch, data key)
+CAPTURE_RUNS = (("fully_supervised", "unet", N, "dense"),
+                ("pce", "unet", N, "scribble"),
+                ("dmpls", "unet_cct", DMPLS_N, "scribble"),
+                ("pce_random_walker", "unet", N, "random_walker"),
+                ("pce_tv", "unet", N, "scribble"),
+                ("pce_entropy_mini", "unet", N, "scribble"),
+                ("pce_gatedcrf", "unet", DMPLS_N, "scribble"),
+                ("pce_mumford_shah", "unet", MS_N, "scribble"),
+                ("pce_intensity_variance", "unet", N, "scribble"))
+# the eight whose steps take a decision on the host: one K-step call each,
+# uncaptured
+UNCAPTURED_RUNS = (("mean_teacher", "unet", SEMI_N, "semi"),
+                   ("uamt", "unet", SEMI_N, "semi"),
+                   ("entropy_minimization", "unet", SEMI_N, "semi"),
+                   ("partially_supervised", "unet", SEMI_N, "semi"),
+                   ("deep_adversarial", "unet", SEMI_N, "semi"),
+                   ("ustm", "unet", SEMI_N, "scribble"),
+                   ("s2l", "unet", SEMI_N, "scribble"),
+                   ("scribblevc", "scribblevc", SVC_N, "svc"))
+# (launch counter, its kernel's name in a trace, demangled or mangled): a
+# replay's launches are counted from the trace, since a wrapper counts
+# the one launch the capture recorded
+TRACE_KERNELS = (
+    ("conv3x3_fwd_stats", r"conv3x3_fwd(?:_mma)?_kernel(?:<[^>]*true>|I.*Lb1E)"),
+    ("conv3x3_fwd", r"conv3x3_fwd(?:_mma)?_kernel(?:<[^>]*false>|I.*Lb0E)"),
+    ("conv3x3_wgrad", r"conv3x3_wgrad(?:_mma)?_kernel"),
+    ("augment", r"(?<![_a-z])augment_kernel"),
+    ("augment_s2l", r"augment_s2l_kernel"),
+    ("maxpool_fwd", r"maxpool_fwd_kernel"),
+    ("maxpool_bwd", r"maxpool_bwd_kernel"),
+    ("gated_crf", r"gated_crf_kernel"))
+
+
+def trace_launches(events):
+    """Launches of each counted kernel among a trace's device events."""
+    out = {k: 0 for k, _ in TRACE_KERNELS}
+    for name, _ in events:
+        for key, pattern in TRACE_KERNELS:
+            if re.search(pattern, name):
+                out[key] += 1
+                break
+    return out
+
+
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+def traced_window(fn, steps, pad):
+    """fn() (which runs `steps` steps) in a torch.profiler window, between
+    two marker kernels (torch.cuda._sleep) with one pad() call before the
+    first and after the second: its device events between the markers,
+    wall ms a step, device busy ms a step and busy share. A trace can lose
+    the records of the first kernels launched after its window opens (on
+    the H100, in some eager windows, the first step's augment launches;
+    tools/trace_loss_probe.py counts such windows), so only the marked
+    segment is read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        torch.cuda._sleep(100)
+        pad()
+        torch.cuda.synchronize()
+    timed = sorted(
+        (e.start_ns(), e.name(), 1e-3 * e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_hidden_event", lambda: False)())
+    marks = [i for i, (_, name, _) in enumerate(timed)
+             if MARKER_KERNEL in name]
+    expect(len(marks) == 2, f"trace: {len(marks)} marker kernels, not 2")
+    events = [(name, us) for _, name, us in timed[marks[0] + 1:marks[1]]]
+    busy_us = sum(us for _, us in events)
+    return events, {"ms_per_step": 1e-3 * wall_us / steps,
+                    "device_busy_ms_per_step": 1e-3 * busy_us / steps,
+                    "device_busy_share": busy_us / wall_us}
+
+
+def _metrics_leaves(m, prefix=""):
+    out = {}
+    for k, v in m.items():
+        if isinstance(v, dict):
+            out.update(_metrics_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v.detach().clone()
+    return out
+
+
+def _restore(state, leaves):
+    """The state as a state_leaves snapshot holds it (tensors and counts)."""
+    _load_leaves(state, leaves)
+    state.step, state.opt.count = leaves["/step"], leaves["/opt/count"]
+
+
+def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
+                k=CAPTURE_K, timed=CAPTURE_TIMED, traced=CAPTURE_TRACED):
+    """One captured method: from one state, K eager steps and one K-step
+    call of engine.graph.CapturedStep on the same batches, every leaf and
+    the metrics bit-equal; the wrappers' counts of the warm-up and the
+    capture; ms/step eager against captured over `timed` steps; `traced`
+    calls and as many eager steps in profile windows (busy share, and each
+    kernel's launches from the trace: per_step_counts a step, for both);
+    capture seconds and peak GB."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.graph import WARMUP_STEPS, CapturedStep
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    t_run = time.perf_counter()
+    cfg = TrainConfig(
+        method=method, model=model_name, batch_size=batch,
+        max_iterations=10 ** 4, compute_dtype="bfloat16", seed=seed,
+        device=dev, patch_size=(hw, hw), sup_type=sup_type_of(method))
+    bundle, new_batches = method_bundle(cfg, data, None)
+    expect(bundle.host_decision is None,
+           f"{method}: host decision {bundle.host_decision!r}")
+    state, step_fn, aux = bundle.state, bundle.step_fn, bundle.aux
+    it = new_batches()
+    batches = [next(it) for _ in range(k)]
+
+    def eager(n):
+        for i in range(n):
+            m = step_fn(state, batches[i % k], split_rngs(seed, state.step,
+                                                          dev), aux)
+        return m
+
+    start = _snapshot(state_leaves(state))
+    torch.cuda.reset_peak_memory_stats()
+    want_metrics = _metrics_leaves(eager(k))
+    sync(dev)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    want = _snapshot(state_leaves(state))
+    _restore(state, start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    captured = CapturedStep(step_fn, state, aux, seed)
+    got_metrics = _metrics_leaves(captured(batches))
+    sync(dev)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = _snapshot(state_leaves(state))
+    bad, worst = leaves_diff(want, got)
+    bad_metrics = sorted(key for key, v in want_metrics.items()
+                         if not torch.equal(v, got_metrics[key]))
+    per = per_step_counts(model_name, method)
+    expected = {key: v * (WARMUP_STEPS + 1) for key, v in per.items()}
+
+    def captured_calls(n):
+        for _ in range(n):
+            captured(batches)
+
+    ms = {}
+    for name, fn in (("eager", eager), ("captured", lambda n: captured_calls(
+            n // k))):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn(timed)
+        sync(dev)
+        ms[name] = 1e3 * (time.perf_counter() - t0) / timed
+    steps = k * traced
+    ev_eager, prof_eager = traced_window(lambda: eager(steps), steps,
+                                         lambda: eager(1))
+    ev_cap, prof_cap = traced_window(lambda: captured_calls(traced), steps,
+                                     lambda: captured(batches[:1]))
+    per_call = {key: v * k for key, v in per.items()}
+    eager_trace = trace_launches(ev_eager)
+    cap_trace = trace_launches(ev_cap)
+    rec = {"method": method, "model": model_name, "batch": batch, "k": k,
+           "leaves": len(want), "leaves_differing": bad,
+           "max_abs_diff": worst, "metrics_differing": bad_metrics,
+           "launches": counts, "expected": expected,
+           "trace_launches_per_call": {key: v / traced for key, v in
+                                       cap_trace.items()},
+           "expected_per_call": per_call,
+           "eager_trace_launches_per_step": {key: v / steps for key, v in
+                                             eager_trace.items()},
+           "eager_ms_per_step": ms["eager"],
+           "captured_ms_per_step": ms["captured"],
+           "profile_eager": prof_eager, "profile_captured": prof_cap,
+           "capture_s": captured.capture_s, "eager_peak_gb": eager_peak,
+           "captured_peak_gb": peak}
+    del captured
+    rec["run_s"] = time.perf_counter() - t_run
+    print("captured-run " + json.dumps(rec), flush=True)
+    expect(not bad and not bad_metrics,
+           f"{method}: captured call differs from {k} eager steps in "
+           f"{bad[:8]} (max {worst}) and metrics {bad_metrics}")
+    expect(counts == expected,
+           f"{method}: warm-up + capture launches {counts} != {expected}")
+    expect(cap_trace == {key: v * traced for key, v in per_call.items()},
+           f"{method}: replay launches {rec['trace_launches_per_call']} a "
+           f"call != {per_call}")
+    expect(eager_trace == {key: v * steps for key, v in per.items()},
+           f"{method}: the trace's eager launches {eager_trace} over "
+           f"{steps} steps != per_step_counts {per}")
+    return rec
+
+
+def uncaptured_run(method, model_name, batch, data, seed, val, dev="cuda",
+                   hw=HW, k=CAPTURE_K):
+    """One K-step call of a method whose step takes a decision on the host,
+    through the Trainer: uncaptured, the reason in the Trainer and its log,
+    the launches of K eager steps."""
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.trainer import Trainer
+
+    snap = os.path.join(ROOT, "build", "chip_smoke", "uncaptured", method)
+    cfg = TrainConfig(
+        method=method, model=model_name, batch_size=batch,
+        labeled_bs=batch // 2, max_iterations=k, val_every=10 ** 9,
+        ckpt_every=10 ** 9, compute_dtype="bfloat16", seed=seed, device=dev,
+        patch_size=(hw, hw), sup_type=sup_type_of(method),
+        snapshot_root=snap, steps_per_call=k)
+    bundle, _ = method_bundle(cfg, data, val)
+    trainer = Trainer(cfg, bundle, use_tensorboard=False)
+    reset_counts()
+    trainer.train()
+    sync(dev)
+    counts = launch_counts()
+    expected = {key: v * k for key, v in per_step_counts(
+        model_name, method).items()}
+    with open(os.path.join(cfg.snapshot_path, "log.txt")) as f:
+        logged = [line.strip() for line in f if "uncaptured" in line]
+    rec = {"method": method, "reason": trainer.uncaptured,
+           "logged": logged, "steps": bundle.state.step, "launches": counts,
+           "expected": expected}
+    expect(trainer.captured is None and trainer.uncaptured
+           and trainer.uncaptured == bundle.host_decision
+           and any(trainer.uncaptured in line for line in logged),
+           f"{method}: uncaptured {trainer.uncaptured!r}, logged {logged}")
+    expect(bundle.state.step == k and counts == expected,
+           f"{method}: {bundle.state.step} steps, launches {counts} != "
+           f"{expected}")
+    return rec
+
+
+def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
+                steps=CAPTURE_CLI_STEPS, k=CAPTURE_K):
+    """The train command, fully_supervised b24, with --steps_per_call k
+    --val_every 200 (log_every rounded to a multiple of k): the call
+    captured (the log says so), one validation at 200, the checkpoints,
+    the launches of the warm-up, the capture and the validation, and the
+    val Dice equal to phase 5's eager run of the same argv at step 200
+    (`eager_dice`): the same states, bit for bit."""
+    import numpy as np
+
+    from wsl4mis_torch.engine.graph import WARMUP_STEPS
+
+    snap = os.path.join(ROOT, "build", "chip_smoke", "captured_cli")
+    argv = entry_argv(N, steps, steps, snap, seed, hw) + [
+        "--steps_per_call", str(k), "--device", dev]
+    trainer = cli_trainer("train_fully_supervised_2D", argv, data, val)
+    cfg = trainer.cfg
+    vals, losses, val_s = [], [], []
+    validate, call = trainer.validate, trainer._call
+
+    def recording_validate(it):
+        t0 = time.perf_counter()
+        out = validate(it)
+        vals.append((it, out[0]))
+        val_s.append(time.perf_counter() - t0)
+        return out
+
+    def recording_call(batches, it):
+        m = call(batches, it)
+        losses.append(m["total_loss"])
+        return m
+
+    trainer.validate, trainer._call = recording_validate, recording_call
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    trainer.train()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {key: v * (WARMUP_STEPS + 1) for key, v in per_step_counts(
+        "unet", cfg.method).items()}
+    depth = sum(-(-v["image"].shape[0] // 8) * 8 for v in val)
+    for key, v in eval_counts("unet").items():
+        expected[key] += v * -(-depth // EVAL_N) * len(vals)
+    with open(os.path.join(cfg.snapshot_path, "log.txt")) as f:
+        logged = [line.strip() for line in f if "steps_per_call" in line]
+    loss_vals = [float(v) for v in losses]
+    capture_s = trainer.captured.capture_s if trainer.captured else None
+    rec = {"steps": steps, "k": k, "val_every": trainer.val_every,
+           "log_every": trainer.log_every, "vals": vals, "logged": logged,
+           "launches": counts, "expected": expected, "losses": loss_vals,
+           "eager_dice": eager_dice, "wall_s": wall, "val_s": sum(val_s),
+           "capture_s": capture_s,
+           "ms_per_step": 1e3 * (wall - sum(val_s)) / steps}
+    expect(trainer.captured is not None and any(
+        "captured in a CUDA graph" in line for line in logged),
+        f"train command: not captured ({logged})")
+    expect([it for it, _ in vals] == [steps] and vals[0][1] == eager_dice,
+           f"train command: validations {vals}, phase 5's Dice {eager_dice}")
+    expect(counts == expected, f"train command: launches {counts} != "
+                               f"{expected}")
+    expect(len(loss_vals) == steps // k and all(np.isfinite(loss_vals)),
+           f"train command: losses {loss_vals}")
+    for name in (f"iter_{steps}.pth", "latest_full.ckpt",
+                 f"{cfg.model}_best_model.pth"):
+        expect(os.path.isfile(os.path.join(cfg.snapshot_path, name)),
+               f"train command: checkpoint {name} missing")
+    return rec
+
+
+def capture_profile(seed, data, dev="cuda", hw=HW, k=2, n=4):
+    """--profile_steps n under capture: fully_supervised b24 through the
+    Trainer at K = k (dividing 10, so that the window opens) for 10 + n
+    steps; the trace file holds the replays' kernels: of every kernel of
+    the step, n steps' launches (per_step_counts), less at most one step's
+    (a trace can lose the first launches after its window opens; see
+    traced_window)."""
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.trainer import Trainer
+
+    snap = os.path.join(ROOT, "build", "chip_smoke", "captured_profile")
+    cfg = TrainConfig(
+        method="fully_supervised", model="unet", batch_size=N,
+        max_iterations=10 + n, val_every=10 ** 9, ckpt_every=10 ** 9,
+        compute_dtype="bfloat16", seed=seed, device=dev,
+        patch_size=(hw, hw), sup_type="label", snapshot_root=snap,
+        steps_per_call=k, profile_steps=n)
+    bundle, _ = method_bundle(cfg, data, None)
+    trainer = Trainer(cfg, bundle, use_tensorboard=False)
+    trainer.train()
+    path = os.path.join(cfg.snapshot_path, "profile", "trace.json")
+    with open(path) as f:
+        events = [(e["name"], e.get("dur", 0.0))
+                  for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    launches = trace_launches(events)
+    per = per_step_counts("unet", cfg.method)
+    expected = {key: v * n for key, v in per.items()}
+    rec = {"k": k, "steps": n, "trace_mb": os.path.getsize(path) / 1e6,
+           "kernel_events": len(events), "launches": launches,
+           "expected": expected}
+    expect(trainer.captured is not None and all(
+        (n - 1) * v <= launches[key] <= n * v for key, v in per.items()),
+        f"profile under capture: {launches}, not {expected} less at most "
+        f"one step's")
+    return rec
+
+
+def capture_phase(seed, datasets, val, card, eager_dice, dev="cuda", hw=HW):
+    """Phase 10: capture_run for the nine methods, uncaptured_run for the
+    other eight, capture_cli, capture_profile; the captured line."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = []
+    for method, model_name, batch, key in CAPTURE_RUNS:
+        runs.append(capture_run(method, model_name, batch, datasets[key],
+                                seed, dev, hw))
+        gc.collect()
+        torch.cuda.empty_cache()
+    uncaptured = [uncaptured_run(method, model_name, batch, datasets[key],
+                                 seed, val, dev, hw)
+                  for method, model_name, batch, key in UNCAPTURED_RUNS]
+    cli_run = capture_cli(seed, datasets["dense"], val, eager_dice, dev, hw)
+    prof = capture_profile(seed, datasets["dense"], dev, hw)
+    out = {"card": card, "runs": runs, "uncaptured": uncaptured,
+           "cli": cli_run, "profile": prof,
+           "phase_s": time.perf_counter() - t0}
+    line = {"card": card, "phase_s": out["phase_s"], "k": CAPTURE_K,
+            "runs": [{key: r[key] for key in (
+                "method", "batch", "leaves", "leaves_differing",
+                "metrics_differing", "eager_ms_per_step",
+                "captured_ms_per_step", "capture_s", "eager_peak_gb",
+                "captured_peak_gb")}
+                | {"busy_share_eager":
+                   r["profile_eager"]["device_busy_share"],
+                   "busy_share_captured":
+                   r["profile_captured"]["device_busy_share"],
+                   "busy_ms_eager":
+                   r["profile_eager"]["device_busy_ms_per_step"],
+                   "busy_ms_captured":
+                   r["profile_captured"]["device_busy_ms_per_step"],
+                   "replay_launches_per_call":
+                   r["trace_launches_per_call"]}
+                for r in runs],
+            "uncaptured": {r["method"]: r["reason"] for r in uncaptured},
+            "cli": {key: cli_run[key] for key in (
+                "steps", "val_every", "log_every", "vals", "eager_dice",
+                "ms_per_step", "capture_s", "wall_s")},
+            "profile_steps": {key: prof[key] for key in (
+                "k", "steps", "trace_mb", "launches")}}
+    print("captured " + json.dumps(line), flush=True)
+    return out
+
+
 # ---- main --------------------------------------------------------------------
 
 
@@ -3632,8 +4068,9 @@ def conv_table(recs):
 
 def wrapper_calls():
     """(name, call, reps) of one call of each wrapper whose host time is
-    recorded: the conv wrappers on a bf16 6x16x16x64 -> 64 conv, too small
-    for the device to be the limit; the augment wrapper at the fs24 step's
+    recorded: the conv wrappers on a bf16 6x16x16x64 -> 64 conv and the
+    pool wrappers on its input, too small for the device to be the limit;
+    the augment wrapper at the fs24 step's
     batch, its S2L variant at the s2l step's and the GatedCRF contraction
     at the pce_gatedcrf step's, their path shapes (fewer calls, so that
     the launch queue never fills)."""
@@ -3643,9 +4080,11 @@ def wrapper_calls():
     from wsl4mis_torch.ops import augment as ag
     from wsl4mis_torch.ops import conv3x3 as cv
     from wsl4mis_torch.ops import gated_crf as gc
+    from wsl4mis_torch.ops import maxpool as mp
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((6, 16, 16, 64), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((6, 8, 8, 64), generator=gen, device="cuda").bfloat16()
     w = (0.1 * torch.randn((3, 3, 64, 64), generator=gen,
                            device="cuda")).bfloat16()
     b = torch.randn((64,), generator=gen, device="cuda").bfloat16()
@@ -3660,6 +4099,8 @@ def wrapper_calls():
         ("conv3x3_fwd", lambda: cv.conv3x3_fwd(x, w, b), 300),
         ("conv3x3_fwd_stats", lambda: cv.conv3x3_fwd_stats(x, w, b), 300),
         ("conv3x3_wgrad", lambda: cv.conv3x3_wgrad(x, x), 300),
+        ("maxpool_fwd", lambda: mp.max_pool_2x2_fwd(x), 300),
+        ("maxpool_bwd", lambda: mp.max_pool_2x2_bwd(x, g), 300),
         ("augment", lambda: ag.augment_batch(images, labels, policy), 100),
         ("augment_s2l", lambda: ag.augment_batch_s2l(*s2l_maps, s2l_policy),
          100),
@@ -3686,7 +4127,10 @@ def wrapper_host_us(calls):
     return out
 
 
-def check_sync_free(calls, names=("augment", "augment_s2l", "gated_crf")):
+def check_sync_free(calls, names=("conv3x3_fwd", "conv3x3_fwd_stats",
+                                  "conv3x3_wgrad", "maxpool_fwd",
+                                  "maxpool_bwd", "augment", "augment_s2l",
+                                  "gated_crf")):
     """One call of each named wrapper under torch.cuda.set_sync_debug_mode(
     "error"), in which any host-device synchronization raises."""
     import torch
@@ -3952,13 +4396,21 @@ def main(argv=None):
     surface = surface_phase(args.seed, val, card,
                             entry["runs"][0]["inference"]["path"], svc_run)
     phase_s["surface"] = time.perf_counter() - t0 - sum(phase_s.values())
+    datasets = {"dense": data, "scribble": scribbles,
+                "random_walker": ArraySliceDataset(
+                    scribbles.images[:RW_SLICES], rw_labels),
+                "semi": (labeled, unlabeled), "svc": svc_data}
+    captured = capture_phase(args.seed, datasets, val, card,
+                             entry["runs"][0]["val_dice"][-1])
+    phase_s["captured"] = time.perf_counter() - t0 - sum(phase_s.values())
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
         "inference"] + [r for r in zoo["models"] if "launches" in r] + (
         resume["runs"] + [resume["cli"]]) + dp_launch_records(dp) + (
-        surface_launch_records(surface))
+        surface_launch_records(surface)) + captured["runs"] + captured[
+        "uncaptured"] + [captured["cli"]]
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -3973,7 +4425,7 @@ def main(argv=None):
               "wrapper_host_us": host_us, "sync_free": sync_free,
               "conv_table": table, "checks": recs,
               "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
-              "data_parallel": dp, "surface": surface,
+              "data_parallel": dp, "surface": surface, "captured": captured,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

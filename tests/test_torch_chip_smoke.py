@@ -473,6 +473,54 @@ def test_port_kernels_are_the_csrc_global_functions():
     assert len(chip_smoke.PORT_KERNELS) == len(names)
 
 
+# device names of one launch of each kernel as a trace may show them:
+# demangled, and mangled (the kernels live in an anonymous namespace)
+TRACE_NAMES = {
+    "conv3x3_fwd_stats": (
+        "void (anonymous namespace)::conv3x3_fwd_mma_kernel<64, true>("
+        "__nv_bfloat16 const*, __nv_bfloat16 const*, float*, int)",
+        "_ZN12_GLOBAL__N_118conv3x3_fwd_kernelIfLb1EEEvPKT_S3_PS1_Pfiiii"),
+    "conv3x3_fwd": (
+        "void (anonymous namespace)::conv3x3_fwd_kernel<float, false>("
+        "float const*, float*, int)",
+        "_ZN12_GLOBAL__N_122conv3x3_fwd_mma_kernelILi16ELb0EEEvPK13__nv_"
+        "bfloat16"),
+    "conv3x3_wgrad": (
+        "void (anonymous namespace)::conv3x3_wgrad_mma_kernel<32>(float*)",
+        "_ZN12_GLOBAL__N_120conv3x3_wgrad_kernelIfLi8ELi16EEEvPKT_"),
+    "augment": ("void (anonymous namespace)::augment_kernel<true>(int)",
+                "_ZN12_GLOBAL__N_114augment_kernelILb0EEEvPKfPKi"),
+    "augment_s2l": (
+        "void (anonymous namespace)::augment_s2l_kernel<true>(int)",
+        "_ZN12_GLOBAL__N_118augment_s2l_kernelILb0EEEvPKf"),
+    "maxpool_fwd": (
+        "void (anonymous namespace)::maxpool_fwd_kernel<float, 4>(int)",
+        "_ZN12_GLOBAL__N_118maxpool_fwd_kernelI13__nv_bfloat16Li8EEEvPKT_"),
+    "maxpool_bwd": (
+        "void (anonymous namespace)::maxpool_bwd_kernel<float, 4>(int)",
+        "_ZN12_GLOBAL__N_118maxpool_bwd_kernelIfLi4EEEvPKT_"),
+    "gated_crf": (
+        "void (anonymous namespace)::gated_crf_kernel<4, 1, 1, 5>(int)",
+        "_ZN12_GLOBAL__N_116gated_crf_kernelILi4ELi8ELi4ELin1EEEvPKf"),
+}
+TRACE_OTHERS = (  # launches no counter counts
+    "void (anonymous namespace)::augment_fill_kernel<true>(int)",
+    "_ZN12_GLOBAL__N_121gated_crf_fold_kernelEPKfPdi",
+    "void at::native::vectorized_elementwise_kernel<4>(int)",
+    "sm90_xmma_gemm_bf16bf16_bf16f32")
+
+
+def test_trace_launches_reads_each_kernels_names():
+    """trace_launches, by which phase 10 counts a replay's launches, counts
+    each kernel's launches under its counter, its names demangled or
+    mangled, and no launch of the fill-flag, fold or PyTorch kernels."""
+    events = [(name, 1.0) for names in TRACE_NAMES.values()
+              for name in names] + [(name, 1.0) for name in TRACE_OTHERS]
+    counts = chip_smoke.trace_launches(events)
+    assert counts == {k: 2 for k in TRACE_NAMES}
+    assert sorted(counts) == sorted(chip_smoke.launch_counts())
+
+
 CANNED_SASS = """
 Fatbin elf code:
 ================

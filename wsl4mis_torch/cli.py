@@ -138,7 +138,8 @@ METHOD_DEFAULTS = {
 
 def build_parser(defaults: dict) -> argparse.ArgumentParser:
     """The train scripts' flags (wsl4mis_tpu/cli.py:20-74, the reference's
-    names) with `defaults`, less the TPU runtime's, plus --device."""
+    names) with `defaults`, less the TPU-only --device_data, --remat and
+    --fast_prng, plus --device."""
     p = argparse.ArgumentParser()
     add = p.add_argument
     add("--root_path", type=str, default=defaults.get("root_path"),
@@ -170,10 +171,14 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
     add("--val_every", type=int, default=200)
     add("--ckpt_every", type=int, default=3000)
     add("--log_every", type=int, default=1)
+    add("--steps_per_call", type=int, default=1,
+        help="fuse K train steps per call (on the card: a captured CUDA "
+             "graph replayed K times)")
     add("--compute_dtype", type=str, default="bfloat16",
         choices=["bfloat16", "float32"])
     add("--snapshot_root", type=str, default="model")
     add("--resume", action="store_true")
+    add("--profile_steps", type=int, default=0)
     add("--data_limit", type=int, default=None)
     add("--aug_mode", type=str, default="device", choices=["device", "host"],
         help="device: in-step augmentation; host: exact reference "
@@ -217,9 +222,11 @@ def config_from_args(args, method: str) -> TrainConfig:
         val_every=args.val_every,
         ckpt_every=args.ckpt_every,
         log_every=args.log_every,
+        steps_per_call=args.steps_per_call,
         compute_dtype=args.compute_dtype,
         snapshot_root=args.snapshot_root,
         resume=args.resume,
+        profile_steps=args.profile_steps,
         data_limit=args.data_limit,
         aug_mode=args.aug_mode,
         device=args.device,
@@ -280,9 +287,10 @@ def resolve_script(name: str) -> tuple[str, dict]:
 
 
 def scribblevc_parser(dataset: str) -> argparse.ArgumentParser:
-    """The flags of scripts/train_{ACDC,MSCMR}_scribblevc.py, less the TPU
-    runtime's, plus --device. MSCMR trains on MSCMRfold and has no fold,
-    warm start, light validation, resume or checkpoint cadence flag."""
+    """The flags of scripts/train_{ACDC,MSCMR}_scribblevc.py, less the
+    TPU-only --remat, plus --device. MSCMR trains on MSCMRfold and has no
+    fold, steps-per-call, warm start, light validation, resume or checkpoint
+    cadence flag."""
     acdc = dataset == "ACDC"
     p = argparse.ArgumentParser(prog=f"train_scribblevc {dataset}")
     add = p.add_argument
@@ -302,6 +310,8 @@ def scribblevc_parser(dataset: str) -> argparse.ArgumentParser:
     add("--snapshot_root", type=str, default="model")
     add("--data_limit", type=int, default=None)
     if acdc:
+        add("--steps_per_call", type=int, default=1,
+            help="K train steps per call (ScribbleVC's run uncaptured)")
         add("--pretrain_weights", type=str, default="",
             help="checkpoint to warm-start from, the port's or the JAX "
                  "package's (reference train_ACDC_scribblevc.py:154-156)")
@@ -339,7 +349,8 @@ def scribblevc_main(argv, dataset: str) -> str:
         val_every=args.val_every_epoches * spe,
         ckpt_every=(args.ckpt_epoches if acdc else 100) * spe,
         light_val=acdc and bool(args.light_val),
-        resume=acdc and bool(args.resume))
+        resume=acdc and bool(args.resume),
+        steps_per_call=args.steps_per_call if acdc else 1)
     return Trainer(cfg, bundle).train()
 
 

@@ -1,8 +1,20 @@
 """Shared training configuration (port of
 ``wsl4mis_tpu/engine/config.py``). Field names keep the reference CLI flag
-names. The TPU runtime knobs (steps_per_call, fast_prng, remat,
-profile_steps) are not ported; ``device`` is new. ``num_devices`` is the
-data-parallel width: one process a card (``parallel``)."""
+names. ``device`` is new. ``num_devices`` is the data-parallel width: one
+process a card (``parallel``).
+
+``steps_per_call`` runs K steps a Trainer call, as the JAX trainer's
+K-step device call does (cadences rounded to multiples of K); on the card
+a call replays the step captured in a CUDA graph K times, where the method
+can be captured (the Trainer's docstring says when). One difference from
+JAX: JAX splits one key into the K steps' keys, so its K > 1 run draws
+otherwise than its K = 1 run; here every step keeps its own (seed, step)
+draws (``split_rngs``), so a K-step run is bit-equal to the K = 1 run on
+the same device, and a resumed run still draws what an uninterrupted one
+would. ``profile_steps`` writes a torch.profiler trace of the steps from
+iteration 10 to 10 + N. Not ported: the TPU-only knobs fast_prng (a JAX
+PRNG stream), device_data (the port always stages the dataset), remat
+(ScribbleVC's stage checkpointing, a later slice) and debug_nans."""
 
 from __future__ import annotations
 
@@ -44,8 +56,14 @@ class TrainConfig:
     val_every: int = 200
     ckpt_every: int = 3000
     log_every: int = 1
+    steps_per_call: int = 1             # K train steps a Trainer call (on
+                                        # the card a captured CUDA graph
+                                        # replayed K times; cadences
+                                        # rounded to multiples of K)
     compute_dtype: str = "bfloat16"     # bfloat16 | float32
     resume: bool = False
+    profile_steps: int = 0              # >0: a torch.profiler trace of
+                                        # iterations 10 .. 10 + N
     data_limit: int | None = None       # cap the dataset size (smoke runs)
     light_val: bool = False             # skip the train-rule validation
                                         # pass when the method has a

@@ -63,6 +63,18 @@ class MethodBundle:
     batch_parts: tuple | None = None  # the batch's parts, each sharded on
                                     # its own over a process group
                                     # (semi_parts); None: one part
+    host_decision: str | None = None  # why the step cannot be captured
+                                    # in a CUDA graph (a value it takes on
+                                    # the host each step); None: it can
+                                    # (Trainer, steps_per_call > 1)
+
+
+# MethodBundle.host_decision of the semi-supervised family (mean_teacher's
+# methods, deep_adversarial)
+SEMI_HOST_DECISION = (
+    "the semi-supervised family's step takes host step counts: its "
+    "consistency ramp, the EMA teacher's decay, uamt's certainty threshold "
+    "and DAN's Adam count")
 
 
 def compute_dtype(cfg: TrainConfig) -> torch.dtype:
@@ -247,9 +259,10 @@ def supervised_ce_dice(outputs, labels, num_classes: int):
 def sigmoid_rampup(current, rampup_length: float):
     """exp(-5 (1 - t)^2), t = clip(current, 0, length) / length, for an int
     step or a tensor of steps; an f32 tensor (on the tensor's device)."""
+    cur = torch.as_tensor(current)
     if rampup_length == 0:
-        return torch.tensor(1.0)
-    cur = torch.as_tensor(current).float().clamp(0.0, rampup_length)
+        return torch.ones((), device=cur.device)
+    cur = cur.float().clamp(0.0, rampup_length)
     phase = 1.0 - cur / rampup_length
     return torch.exp(-5.0 * phase * phase)
 
@@ -270,14 +283,19 @@ def train_vis(x, logits, labels) -> dict:
 RNG_PURPOSES = ("aug", "dropout", "feature_perturb", "method")
 
 
+def rng_seeds(seed: int, step: int, names=RNG_PURPOSES) -> dict:
+    """The seed of each purpose's generator at one step, from (seed, step,
+    purpose)."""
+    return {name: int(np.random.SeedSequence([seed, step, i]).generate_state(
+        1, np.uint64)[0]) for i, name in enumerate(names)}
+
+
 def split_rngs(seed: int, step: int, device, names=RNG_PURPOSES) -> dict:
     """Per-purpose generators for one step, seeded from (seed, step,
     purpose): a resumed run draws what an uninterrupted one would."""
     out = {}
-    for i, name in enumerate(names):
-        s = np.random.SeedSequence([seed, step, i]).generate_state(
-            1, np.uint64)[0]
+    for name, s in rng_seeds(seed, step, names).items():
         gen = torch.Generator(device=torch.device(device))
-        gen.manual_seed(int(s))
+        gen.manual_seed(s)
         out[name] = gen
     return out

@@ -30,6 +30,7 @@ from ...utils.device import resolve_device
 from ..config import TrainConfig
 from ..optim import adam_init, reference_adam
 from .common import (
+    SEMI_HOST_DECISION,
     MethodBundle,
     compute_dtype,
     make_model_and_state,
@@ -128,7 +129,8 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
                         step_fn=make_step(cfg, disc),
                         aux=stage_dataset(cfg, stack), data_iter=it,
                         val_volumes=val, steps_per_epoch=spe,
-                        batch_parts=semi_parts(cfg))
+                        batch_parts=semi_parts(cfg),
+                        host_decision=SEMI_HOST_DECISION)
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

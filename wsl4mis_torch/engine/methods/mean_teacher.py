@@ -37,6 +37,7 @@ from ...ops import losses
 from ..config import TrainConfig
 from ..state import ema_copy, ema_update
 from .common import (
+    SEMI_HOST_DECISION,
     MethodBundle,
     make_model_and_state,
     paired_data,
@@ -202,7 +203,8 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
                         aux=stage_dataset(cfg, stack), data_iter=it,
                         val_volumes=val, steps_per_epoch=spe,
-                        batch_parts=semi_parts(cfg))
+                        batch_parts=semi_parts(cfg),
+                        host_decision=SEMI_HOST_DECISION)
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -78,7 +78,7 @@ def make_step(cfg: TrainConfig):
             reg = (_inter_class_variance(probs, x)
                    - _intra_class_variance(probs, x))
             weight = cfg.consistency * sigmoid_rampup(
-                state.step // 150, cfg.consistency_rampup)
+                state.step_tensor() // 150, cfg.consistency_rampup)
             loss = loss_ce + weight * reg
         state.minimize(loss)
         return {

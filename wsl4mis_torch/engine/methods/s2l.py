@@ -128,7 +128,9 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
                         aux=aux, data_iter=index_batches(cfg, train),
                         val_volumes=val,
                         steps_per_epoch=len(train) // cfg.batch_size,
-                        host_hook=host_hook)
+                        host_hook=host_hook,
+                        host_decision="its pseudo-label gate is a host "
+                        "comparison, step >= thr_iter")
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -185,6 +185,8 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
         step_fn=make_step(cfg, steps_per_epoch), aux=aux,
         data_iter=index_batches(cfg, train), val_volumes=val,
         steps_per_epoch=steps_per_epoch,
+        host_decision="its class-memory gate is a host comparison on the "
+        "epoch, step // steps_per_epoch > 4",
         predictor=predictor(cam_decision, True),
         val_variables=val_variables,
         nan_val_metrics=True,

@@ -87,7 +87,9 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
                         aux=stage_dataset(cfg, train),
                         data_iter=train_batches(cfg, train), val_volumes=val,
-                        steps_per_epoch=len(train) // cfg.batch_size)
+                        steps_per_epoch=len(train) // cfg.batch_size,
+                        host_decision="it draws rot_times on the host each "
+                        "step (make_step's rot90 of the teacher's input)")
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import capturing
 from ..utils.params import check_keys, copy_named
 
 
@@ -49,7 +50,14 @@ def poly_lr(base_lr: float, max_iterations: int, power: float = 0.9):
 
 
 class ReferenceSGD:
-    """Momentum SGD over `params`; `count` is the number of updates done."""
+    """Momentum SGD over `params`; `count` is the number of updates done.
+
+    The update reads its learning rate from `lr_buffer`, a 0-d f32 tensor
+    on the parameters' device that `load_lr` fills with schedule(count):
+    an eager update fills it itself, a captured one reads what the
+    replay's caller loaded (``engine.graph``). It applies p - f32(lr * m),
+    the product rounded apart, as optax's scale_by_learning_rate and
+    apply_updates round it."""
 
     def __init__(self, params, base_lr: float, max_iterations: int,
                  momentum: float = 0.9, weight_decay: float = 1e-4):
@@ -59,6 +67,13 @@ class ReferenceSGD:
         self.weight_decay = weight_decay
         self.count = 0
         self.momentum_buffers = [torch.zeros_like(p) for p in self.params]
+        self.lr_buffer = torch.zeros((), dtype=torch.float32,
+                                     device=self.params[0].device)
+
+    def load_lr(self) -> None:
+        """lr_buffer <- schedule(count) (a fill on the device, no
+        host-device sync)."""
+        self.lr_buffer.fill_(self.schedule(self.count))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -68,12 +83,14 @@ class ReferenceSGD:
     def step(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
-        lr = self.schedule(self.count)
+        if not capturing():
+            self.load_lr()
         grads = torch._foreach_add(grads, self.params,
                                    alpha=self.weight_decay)
         torch._foreach_mul_(self.momentum_buffers, self.momentum)
         torch._foreach_add_(self.momentum_buffers, grads)
-        torch._foreach_add_(self.params, self.momentum_buffers, alpha=-lr)
+        torch._foreach_sub_(self.params, torch._foreach_mul(
+            self.momentum_buffers, self.lr_buffer))
         self.count += 1
 
     def state_dict(self) -> dict:

@@ -13,13 +13,14 @@ the loaded values; a key missing or left over raises and names it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
 
 from .. import parallel
+from ..utils.device import capturing
 from ..utils.params import (
     check_keys,
     copy_named,
@@ -46,10 +47,32 @@ class TrainState:
     step: int = 0
     extra: Any = None  # tensors in (nested) dicts: EMA params, a
                        # discriminator's params and Adam state
+    step_buffer: torch.Tensor | None = field(default=None, repr=False,
+                                             compare=False)
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def step_tensor(self) -> torch.Tensor:
+        """`step` as a 0-d int64 tensor on the state's device
+        (`step_buffer`), for what a step computes from it on the device
+        (the ramp of pce_intensity_variance): an eager step fills it here,
+        a captured one reads what the replay's caller loaded
+        (``load_step_scalars``)."""
+        if self.step_buffer is None:
+            self.step_buffer = torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+        if not capturing():
+            self.step_buffer.fill_(self.step)
+        return self.step_buffer
+
+    def load_step_scalars(self) -> None:
+        """Fill the step's device scalars from the host counts: the step and
+        the SGD's learning rate (``engine.graph`` calls it before a capture,
+        which must find the buffers allocated, and before every replay)."""
+        self.step_tensor()
+        self.opt.load_lr()
 
     def minimize(self, loss: torch.Tensor) -> None:
         """Backward of `loss`, one optimizer update, step + 1. Under a

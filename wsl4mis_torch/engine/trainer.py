@@ -19,6 +19,21 @@ Each step runs eagerly on cfg.device with per-step generators from
 (cfg.seed, iteration); metrics stay on the device until the logging
 cadence reads them.
 
+``cfg.steps_per_call`` K > 1 runs K steps a call, as the JAX trainer's
+K-step device call does: the validation, checkpoint, log and image
+cadences are rounded to multiples of K (``_round``, with the JAX
+trainer's warning where K does not divide val_every), 4·K batches are
+prefetched, and each call returns its K-th step's metrics; the host hook
+runs after each call. On the card a call replays the step captured in a
+CUDA graph K times (``engine.graph.CapturedStep``), unless the method
+takes a decision on the host each step (``MethodBundle.host_decision``)
+or a process group runs: then, as on the CPU, the K steps run eagerly.
+The Trainer logs once which way it went and why. Every step keeps its
+(cfg.seed, step) draws, so a K-step run is bit-equal to the K = 1 run.
+``cfg.profile_steps`` N > 0 writes a torch.profiler trace (Chrome JSON) of
+the steps from iteration 10 to 10 + N into ``{snapshot}/profile``, opened
+and closed where the JAX trainer's would be (at a call's boundary).
+
 ``cfg.resume`` continues from ``{snapshot}/latest_full.ckpt`` in either
 package's format (``utils.checkpoint.restore_train_state``), with the
 data iterator started anew, as the JAX trainer does. A JAX run continued
@@ -42,6 +57,7 @@ import os
 import shutil
 
 import numpy as np
+import torch
 
 from .. import parallel
 from ..data.loader import prefetch
@@ -54,6 +70,7 @@ from ..utils.checkpoint import (
 from ..utils.device import resolve_device
 from ..utils.logging_utils import Timer, setup_run_logging
 from .config import TrainConfig
+from .graph import CapturedStep
 from .methods.common import MethodBundle, split_rngs
 
 
@@ -78,13 +95,41 @@ class Trainer:
             self._snapshot_code()
 
         self.state = bundle.state
-        self.image_every = 20  # train_fully_supervised_2D.py:121
+        self.multi = max(1, cfg.steps_per_call)
+
+        def _round(v):
+            return max(self.multi, (v // self.multi) * self.multi)
+
+        if self.multi > 1 and cfg.val_every % self.multi:
+            logging.warning(
+                "steps_per_call %d does not divide val_every %d: validation/"
+                "checkpoint cadence quantizes to every %d iterations (the "
+                "reference contract is every %d, "
+                "train_fully_supervised_2D.py:132)",
+                self.multi, cfg.val_every, _round(cfg.val_every),
+                cfg.val_every)
+        self.val_every = _round(cfg.val_every)
+        self.ckpt_every = _round(cfg.ckpt_every)
+        self.log_every = _round(cfg.log_every)
+        self.image_every = _round(20)  # train_fully_supervised_2D.py:121
         batches = bundle.data_iter
         if self.mesh.world_size > 1:
             parallel.replicate_tree(self.state.state_dict())
             batches = (parallel.shard_batch(self.mesh, b, bundle.batch_parts)
                        for b in batches)
-        self.data_iter = prefetch(batches, size=4)
+        self.data_iter = prefetch(batches, size=4 * self.multi)
+        self.captured, self.uncaptured = None, None
+        if self.multi > 1:
+            self.uncaptured = self._uncaptured_reason()
+            if self.uncaptured is None:
+                self.captured = CapturedStep(bundle.step_fn, self.state,
+                                             bundle.aux, cfg.seed)
+                logging.info("steps_per_call %d: a call replays the step "
+                             "captured in a CUDA graph %d times", self.multi,
+                             self.multi)
+            else:
+                logging.info("steps_per_call %d: the steps of a call run "
+                             "uncaptured: %s", self.multi, self.uncaptured)
         self.predictor = bundle.predictor or VolumePredictor(
             bundle.model, cfg.patch_size, device=self.device)
 
@@ -104,6 +149,47 @@ class Trainer:
                 fmt = restore_train_state(ckpt, self.state)
                 logging.info("resumed from %s (%s format) at step %d", ckpt,
                              fmt, self.state.step)
+
+    def _uncaptured_reason(self) -> str | None:
+        """Why the K steps of a call cannot replay a captured step, or
+        None."""
+        if self.device.type != "cuda":
+            return f"{self.device.type} has no CUDA graph"
+        if self.mesh.world_size > 1:
+            return ("a process group's collectives run in the step, each a "
+                    "host round trip")
+        return self.bundle.host_decision
+
+    def _call(self, batches, iter_num: int) -> dict:
+        """One step a batch of `batches` from iteration `iter_num` on; the
+        last step's metrics."""
+        if self.captured is not None:
+            return self.captured(batches)
+        for k, batch in enumerate(batches):
+            rngs = split_rngs(self.cfg.seed, iter_num + k, self.device)
+            metrics = self.bundle.step_fn(self.state, batch, rngs,
+                                          self.bundle.aux)
+        return metrics
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        profile_dir = os.path.join(self.snapshot_path, "profile")
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        logging.info("profiler trace written to %s", path)
 
     def _snapshot_code(self):
         """Copy the library into the run dir for provenance."""
@@ -184,18 +270,23 @@ class Trainer:
         iter_num = self.state.step
         best_performance = 0.0
         timer = Timer()
+        profiling = cfg.profile_steps > 0 and self.lead
+        prof = None
 
         while iter_num < cfg.max_iterations:
-            batch = next(self.data_iter)
-            rngs = split_rngs(cfg.seed, iter_num, self.device)
-            metrics = self.bundle.step_fn(self.state, batch, rngs,
-                                          self.bundle.aux)
-            iter_num += 1
+            batches = [next(self.data_iter) for _ in range(self.multi)]
+            if profiling and iter_num == 10:
+                prof = self._start_profile()
+            metrics = self._call(batches, iter_num)
+            iter_num += self.multi
+            if prof is not None and iter_num == 10 + cfg.profile_steps:
+                self._stop_profile(prof)
+                prof = None
 
             if iter_num % self.image_every == 0:
                 self._images(metrics.get("vis"), iter_num)
 
-            if iter_num % cfg.log_every == 0 and self.lead:
+            if iter_num % self.log_every == 0 and self.lead:
                 host = {k: float(v) for k, v in metrics.items() if k != "vis"}
                 lr = self.state.opt.schedule(iter_num)
                 self._scalar("info/lr", lr, iter_num)
@@ -204,10 +295,10 @@ class Trainer:
                 logging.info(
                     "iteration %d : %s : %.1f ms/it", iter_num,
                     " ".join(f"{k}: {v:f}" for k, v in host.items()),
-                    1e3 * timer.tick() / cfg.log_every,
+                    1e3 * timer.tick() / self.log_every,
                 )
 
-            if iter_num > 0 and iter_num % cfg.val_every == 0 and self.lead:
+            if iter_num > 0 and iter_num % self.val_every == 0 and self.lead:
                 performance, mean_hd95 = self.validate(iter_num)
                 thresh = self.bundle.dice_snapshot_threshold
                 if thresh is not None and performance > thresh:
@@ -221,13 +312,14 @@ class Trainer:
                 logging.info("iteration %d : mean_dice : %f mean_hd95 : %f",
                              iter_num, performance, mean_hd95)
 
-            if iter_num % cfg.ckpt_every == 0 and self.lead:
+            if iter_num % self.ckpt_every == 0 and self.lead:
                 self._save_model(f"iter_{iter_num}.pth")
                 save_train_state(
                     os.path.join(self.snapshot_path, "latest_full.ckpt"),
                     self.state)
                 logging.info("save model to %s", self.snapshot_path)
-            if iter_num % cfg.val_every == 0 or iter_num % cfg.ckpt_every == 0:
+            if iter_num % self.val_every == 0 \
+                    or iter_num % self.ckpt_every == 0:
                 parallel.barrier()  # the other ranks wait for rank 0
 
             # after the checkpoint, as the JAX trainer runs it: a checkpoint
@@ -235,6 +327,10 @@ class Trainer:
             if self.bundle.host_hook is not None:
                 self.bundle.host_hook(self.bundle, self.state, iter_num)
 
+        if prof is not None:  # the run ended inside the window
+            logging.warning("profile window open at the end (iteration %d "
+                            "of 10 + %d)", iter_num, cfg.profile_steps)
+            self._stop_profile(prof)
         if self.writer is not None:
             self.writer.close()
         return "Training Finished!"

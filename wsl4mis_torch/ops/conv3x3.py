@@ -100,8 +100,8 @@ def _fwd_kernel(x, w, b, stats):
     y = torch.empty((n, h, wd, o), dtype=x.dtype, device=x.device)
     lib = _build.lib("conv3x3")
     bp = b.data_ptr() if b is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(x):
+        stream = _build.stream(x)
         if stats:
             part = torch.empty((lib.conv3x3_stats_rows(
                 n, h, wd, o, _DTYPE_CODE[x.dtype]), 2, o),
@@ -137,10 +137,10 @@ def _wgrad_kernel(x, g):
     code = _DTYPE_CODE[x.dtype]
     part = torch.empty((lib.conv3x3_wgrad_splits(n, h, wd, c, o, code), 3,
                         3, c, o), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         err = lib.conv3x3_wgrad(
             x.data_ptr(), g.data_ptr(), part.data_ptr(), n, h, wd, c, o,
-            code, torch.cuda.current_stream().cuda_stream)
+            code, _build.stream(x))
     _build.check("conv3x3", "conv3x3_wgrad", err)
     launches["conv3x3_wgrad"] += 1
     return part.sum(0)  # fold the pixel-range splits (deterministic)

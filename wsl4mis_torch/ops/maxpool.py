@@ -99,10 +99,9 @@ def _fwd_kernel(x):
     n, h, w, c = x.shape
     y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     lib = _build.lib("maxpool")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         err = lib.maxpool_fwd(x.data_ptr(), y.data_ptr(), n, h, w, c,
-                              _DTYPE_CODE[x.dtype],
-                              torch.cuda.current_stream().cuda_stream)
+                              _DTYPE_CODE[x.dtype], _build.stream(x))
     _build.check("maxpool", "maxpool_fwd", err)
     launches["maxpool_fwd"] += 1
     return y
@@ -113,10 +112,9 @@ def _bwd_kernel(x, g):
     n, h, w, c = x.shape
     dx = torch.empty_like(x)
     lib = _build.lib("maxpool")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         err = lib.maxpool_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, h,
-                              w, c, _DTYPE_CODE[x.dtype],
-                              torch.cuda.current_stream().cuda_stream)
+                              w, c, _DTYPE_CODE[x.dtype], _build.stream(x))
     _build.check("maxpool", "maxpool_bwd", err)
     launches["maxpool_bwd"] += 1
     return dx

@@ -25,3 +25,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a CUDA graph: a step
+    then reads its per-step host values from the buffers the replay's
+    caller fills (``engine.graph``), instead of filling them itself."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
