@@ -179,20 +179,30 @@ failure:
    to calculate_metric_percase_spacing at (10, 1, 1) over each one's own
    predictions.
 10. The K-step call (``--steps_per_call``, engine.graph.CapturedStep;
-   the captured line): for each of the nine methods whose step takes no
-   decision on the host, at its phase-3 cell (fully_supervised, pce,
-   pce_random_walker, pce_tv, pce_entropy_mini, pce_intensity_variance at
-   batch 24, pce_mumford_shah at 12, dmpls and pce_gatedcrf at 6), from
-   one state, 4 eager steps and one 4-step call replaying the captured
-   step end bit-equal in every leaf and in the metrics; the wrappers'
-   counters show the warm-up and the capture (WARMUP_STEPS + 1 steps'
-   launches), and a trace of 2 calls shows per_step_counts x 4 launches a
-   call of every kernel (the same count over 8 eager steps checks the
-   trace's reading); ms/step eager against captured over 20 steps,
-   device busy share, capture seconds and peak GB. Each of the other
-   eight (the semi family, ustm, s2l, scribblevc) runs one 4-step call
-   through the Trainer uncaptured, its reason in the Trainer and its log.
-   Then the train command, fully_supervised batch 24, --steps_per_call 4
+   the captured line): for each of the 17 methods, at its phase-3 cell
+   (fully_supervised, pce, pce_random_walker, pce_tv, pce_entropy_mini,
+   pce_intensity_variance at batch 24, pce_mumford_shah, the semi
+   family, deep_adversarial, ustm and s2l at 12, dmpls, pce_gatedcrf and
+   scribblevc at 6), from one state, 4 eager steps and one 4-step call
+   replaying the captured step end bit-equal in every leaf and in the
+   metrics. The methods with variants (MethodBundle.variant, a graph
+   each) cross them: s2l from thr_iter - 2 (after a refresh, so that the
+   pseudo-label term is live), scribblevc from two steps before its memory
+   gate opens, ustm over 12 steps (three calls) whose rotations take all
+   four values, a graph captured earlier replayed after a later one. The
+   wrappers' counters show each variant's warm-up and capture
+   (WARMUP_STEPS + 1 steps' launches a graph), and a trace of 2 calls
+   shows per_step_counts x 4 launches a call of every kernel (the same
+   count over 8 eager steps checks the trace's reading); ms/step eager
+   against captured (over 20 steps; scribblevc 8), device busy share,
+   each variant's capture seconds and peak GB. The remat part
+   (remat_part): ScribbleVC b6, 4 eager steps with remat bit-equal to 4
+   without from one state across the memory gate, one captured 4-step
+   remat call bit-equal to them, peak GB and captured ms/step with and
+   without remat at batch 6 and 12, and the train_scribblevc ACDC command
+   with --remat 1 --steps_per_call 4 over 8 steps (both variants
+   captured) ending bit-equal to the same argv with --remat 0. Then the
+   train command, fully_supervised batch 24, --steps_per_call 4
    --val_every 200 over 200 steps: the call captured, one validation at
    200 whose Dice equals phase 5's eager run of the same argv (the same
    state, bit for bit), the checkpoints. Last, --profile_steps 4 at K =
@@ -208,8 +218,8 @@ save and restore seconds, file MB, chunks, step differences, peak GB,
 the card), the data_parallel line, the surface line, the captured line,
 a per-conv table of the batch-24 step's conv launches (conv-table
 lines), the per-kernel JSON line (its launches summed over phases 3 and
-5-10; phase 10's counted by the wrappers: the warm-up's and the
-capture's), the nvidia-smi line, and
+5-10; phase 10's counted by the wrappers: the warm-ups' and the
+captures'), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
@@ -3552,10 +3562,16 @@ def surface_launch_records(surface):
 
 CAPTURE_K = 4  # steps a call
 CAPTURE_TIMED = 20  # steps timed eagerly and captured, after the warm-up
+# the semi family, DAN, ustm, s2l and scribblevc, whose eager steps are
+# the longest: 4 timed steps and one traced call each (scribblevc's cut
+# first), to keep the phase's time
+CAPTURE_CUT = ("scribblevc", "mean_teacher", "uamt", "entropy_minimization",
+               "partially_supervised", "deep_adversarial", "ustm", "s2l")
 CAPTURE_TRACED = 2  # calls (of CAPTURE_K steps) in each profile window
 CAPTURE_CLI_STEPS = 200  # the train command's run: one validation, at 200
-# the nine methods whose K-step call is captured, at their phase-3 cells:
-# (method, model, batch, data key)
+CAPTURE_USTM_CALLS = 3  # ustm's run: 12 steps, every rotation among them
+CAPTURE_S2L_START = 4  # s2l's first step; its gate opens two steps later
+# the 17 methods at their phase-3 cells: (method, model, batch, data key)
 CAPTURE_RUNS = (("fully_supervised", "unet", N, "dense"),
                 ("pce", "unet", N, "scribble"),
                 ("dmpls", "unet_cct", DMPLS_N, "scribble"),
@@ -3564,17 +3580,17 @@ CAPTURE_RUNS = (("fully_supervised", "unet", N, "dense"),
                 ("pce_entropy_mini", "unet", N, "scribble"),
                 ("pce_gatedcrf", "unet", DMPLS_N, "scribble"),
                 ("pce_mumford_shah", "unet", MS_N, "scribble"),
-                ("pce_intensity_variance", "unet", N, "scribble"))
-# the eight whose steps take a decision on the host: one K-step call each,
-# uncaptured
-UNCAPTURED_RUNS = (("mean_teacher", "unet", SEMI_N, "semi"),
-                   ("uamt", "unet", SEMI_N, "semi"),
-                   ("entropy_minimization", "unet", SEMI_N, "semi"),
-                   ("partially_supervised", "unet", SEMI_N, "semi"),
-                   ("deep_adversarial", "unet", SEMI_N, "semi"),
-                   ("ustm", "unet", SEMI_N, "scribble"),
-                   ("s2l", "unet", SEMI_N, "scribble"),
-                   ("scribblevc", "scribblevc", SVC_N, "svc"))
+                ("pce_intensity_variance", "unet", N, "scribble"),
+                ("mean_teacher", "unet", SEMI_N, "semi"),
+                ("uamt", "unet", SEMI_N, "semi"),
+                ("entropy_minimization", "unet", SEMI_N, "semi"),
+                ("partially_supervised", "unet", SEMI_N, "semi"),
+                ("deep_adversarial", "unet", SEMI_N, "semi"),
+                ("ustm", "unet", SEMI_N, "scribble"),
+                ("s2l", "unet", SEMI_N, "scribble"),
+                ("scribblevc", "scribblevc", SVC_N, "svc"))
+REMAT_BATCHES = (SVC_N, 2 * SVC_N)  # the remat part's peak GB and ms/step
+REMAT_CLI_EPOCHS = 8  # the train_scribblevc command's run (an epoch a step)
 # (launch counter, its kernel's name in a trace, demangled or mangled): a
 # replay's launches are counted from the trace, since a wrapper counts
 # the one launch the capture recorded
@@ -3654,20 +3670,60 @@ def _metrics_leaves(m, prefix=""):
 
 
 def _restore(state, leaves):
-    """The state as a state_leaves snapshot holds it (tensors and counts)."""
+    """The state as a state_leaves snapshot holds it (tensors and host
+    counts)."""
     _load_leaves(state, leaves)
-    state.step, state.opt.count = leaves["/step"], leaves["/opt/count"]
+    state.set_host_counts({k: leaves["/" + k] for k in state.host_counts()})
+
+
+def variant_picks(bundle, seed, start, steps):
+    """The bundle's variant key (engine.graph.CapturedStep.pick's) of each
+    step from `start` on, picked on the host."""
+    if bundle.variant is None:
+        return [()] * steps
+    probe = type("HostState", (), {})()
+    out = []
+    for n in range(start, start + steps):
+        probe.step = n
+        out.append(tuple(sorted(bundle.variant(probe, seed).items())))
+    return out
+
+
+def replay_reorders(picks):
+    """Whether a graph captured earlier is replayed after one captured
+    later: the capture index of the steps' variants is not monotone."""
+    order = list(dict.fromkeys(picks))
+    idx = [order.index(p) for p in picks]
+    return any(a > b for a, b in zip(idx, idx[1:]))
+
+
+def ustm_start(seed, steps, limit=400):
+    """The first step from which `steps` ustm steps take all four rotations
+    and replay a graph after a later-captured one."""
+    from wsl4mis_torch.engine.methods.ustm import variant
+
+    bundle = type("Bundle", (), {"variant": staticmethod(variant)})()
+    for start in range(limit):
+        picks = variant_picks(bundle, seed, start, steps)
+        if len(set(picks)) == 4 and replay_reorders(picks):
+            return start
+    raise Failure(f"ustm: no {steps}-step window from steps 0..{limit} "
+                  f"takes all four rotations")
 
 
 def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
-                k=CAPTURE_K, timed=CAPTURE_TIMED, traced=CAPTURE_TRACED):
-    """One captured method: from one state, K eager steps and one K-step
-    call of engine.graph.CapturedStep on the same batches, every leaf and
-    the metrics bit-equal; the wrappers' counts of the warm-up and the
-    capture; ms/step eager against captured over `timed` steps; `traced`
-    calls and as many eager steps in profile windows (busy share, and each
-    kernel's launches from the trace: per_step_counts a step, for both);
-    capture seconds and peak GB."""
+                k=CAPTURE_K, timed=CAPTURE_TIMED, traced=CAPTURE_TRACED,
+                calls=1, start=0, flags=None, refresh=False):
+    """One captured method: from one state at step `start`, k * calls eager
+    steps and `calls` k-step calls of engine.graph.CapturedStep on the same
+    batches, every leaf and each call's metrics bit-equal; the variants
+    picked and captured (their order, whether a replay reorders them); the
+    wrappers' counts of the warm-ups and captures; ms/step eager against
+    captured over `timed` steps; `traced` calls and as many eager steps in
+    profile windows (busy share, and each kernel's launches from the
+    trace: per_step_counts a step, for both); capture seconds of each
+    variant and peak GB. `flags`: more TrainConfig fields; `refresh`: run
+    s2l's host hook once first (a live pseudo-label buffer)."""
     import torch
 
     from wsl4mis_torch.engine.config import TrainConfig
@@ -3675,49 +3731,68 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     from wsl4mis_torch.engine.methods.common import split_rngs
 
     t_run = time.perf_counter()
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
     cfg = TrainConfig(
         method=method, model=model_name, batch_size=batch,
-        max_iterations=10 ** 4, compute_dtype="bfloat16", seed=seed,
-        device=dev, patch_size=(hw, hw), sup_type=sup_type_of(method))
+        labeled_bs=batch // 2, max_iterations=10 ** 4,
+        compute_dtype="bfloat16", seed=seed, device=dev, patch_size=(hw, hw),
+        sup_type=sup_type_of(method), **(flags or {}))
     bundle, new_batches = method_bundle(cfg, data, None)
-    expect(bundle.host_decision is None,
-           f"{method}: host decision {bundle.host_decision!r}")
     state, step_fn, aux = bundle.state, bundle.step_fn, bundle.aux
+    if refresh:
+        bundle.host_hook(bundle, state, cfg.period_iter)
+    state.set_host_counts({key: start for key in state.host_counts()})
     it = new_batches()
-    batches = [next(it) for _ in range(k)]
+    batches = [next(it) for _ in range(k * calls)]
+    picks = variant_picks(bundle, seed, start, k * calls)
+    t_part = part("build", t_run)
 
     def eager(n):
         for i in range(n):
-            m = step_fn(state, batches[i % k], split_rngs(seed, state.step,
-                                                          dev), aux)
+            m = step_fn(state, batches[i % len(batches)],
+                        split_rngs(seed, state.step, dev), aux)
         return m
 
-    start = _snapshot(state_leaves(state))
+    start_leaves = _snapshot(state_leaves(state))
     torch.cuda.reset_peak_memory_stats()
-    want_metrics = _metrics_leaves(eager(k))
+    want_metrics = []
+    for _ in range(calls):
+        want_metrics.append(_metrics_leaves(eager(k)))
+        batches = batches[k:] + batches[:k]
     sync(dev)
     eager_peak = torch.cuda.max_memory_allocated() / 1e9
     want = _snapshot(state_leaves(state))
-    _restore(state, start)
+    _restore(state, start_leaves)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    t_part = part("eager", t_part)
     reset_counts()
-    captured = CapturedStep(step_fn, state, aux, seed)
-    got_metrics = _metrics_leaves(captured(batches))
+    captured = CapturedStep(step_fn, state, aux, seed, bundle.variant)
+    got_metrics = [_metrics_leaves(captured(batches[c * k:(c + 1) * k]))
+                   for c in range(calls)]
     sync(dev)
+    t_part = part("captured", t_part)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     got = _snapshot(state_leaves(state))
     bad, worst = leaves_diff(want, got)
-    bad_metrics = sorted(key for key, v in want_metrics.items()
-                         if not torch.equal(v, got_metrics[key]))
+    bad_metrics = sorted({key for w, g in zip(want_metrics, got_metrics)
+                          for key, v in w.items()
+                          if not torch.equal(v, g[key])})
     per = per_step_counts(model_name, method)
-    expected = {key: v * (WARMUP_STEPS + 1) for key, v in per.items()}
+    graphs = len(captured.graphs)
+    expected = {key: v * (WARMUP_STEPS + 1) * graphs
+                for key, v in per.items()}
 
     def captured_calls(n):
         for _ in range(n):
-            captured(batches)
+            captured(batches[:k])
 
     ms = {}
     for name, fn in (("eager", eager), ("captured", lambda n: captured_calls(
@@ -3727,6 +3802,8 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
         fn(timed)
         sync(dev)
         ms[name] = 1e3 * (time.perf_counter() - t0) / timed
+    graphs_after = len(captured.graphs)
+    t_part = part("timed", t_part)
     steps = k * traced
     ev_eager, prof_eager = traced_window(lambda: eager(steps), steps,
                                          lambda: eager(1))
@@ -3735,7 +3812,12 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     per_call = {key: v * k for key, v in per.items()}
     eager_trace = trace_launches(ev_eager)
     cap_trace = trace_launches(ev_cap)
+    part("traced", t_part)
     rec = {"method": method, "model": model_name, "batch": batch, "k": k,
+           "calls": calls, "start": start,
+           "variants": [str(dict(p)) for p in dict.fromkeys(picks)],
+           "replay_reorders": replay_reorders(picks),
+           "graphs": graphs, "graphs_after_timing": len(captured.graphs),
            "leaves": len(want), "leaves_differing": bad,
            "max_abs_diff": worst, "metrics_differing": bad_metrics,
            "launches": counts, "expected": expected,
@@ -3744,17 +3826,23 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
            "expected_per_call": per_call,
            "eager_trace_launches_per_step": {key: v / steps for key, v in
                                              eager_trace.items()},
-           "eager_ms_per_step": ms["eager"],
+           "timed": timed, "eager_ms_per_step": ms["eager"],
            "captured_ms_per_step": ms["captured"],
            "profile_eager": prof_eager, "profile_captured": prof_cap,
-           "capture_s": captured.capture_s, "eager_peak_gb": eager_peak,
-           "captured_peak_gb": peak}
+           "capture_s": {str(dict(key)): v for key, v in
+                         captured.capture_s.items()},
+           "eager_peak_gb": eager_peak, "captured_peak_gb": peak,
+           "parts_s": parts}
     del captured
     rec["run_s"] = time.perf_counter() - t_run
     print("captured-run " + json.dumps(rec), flush=True)
     expect(not bad and not bad_metrics,
-           f"{method}: captured call differs from {k} eager steps in "
-           f"{bad[:8]} (max {worst}) and metrics {bad_metrics}")
+           f"{method}: {calls} captured call(s) differ from {k * calls} "
+           f"eager steps in {bad[:8]} (max {worst}) and metrics "
+           f"{bad_metrics}")
+    expect(graphs == len(set(picks)) == graphs_after,
+           f"{method}: {graphs} graphs ({graphs_after} after timing) for "
+           f"the variants {rec['variants']}")
     expect(counts == expected,
            f"{method}: warm-up + capture launches {counts} != {expected}")
     expect(cap_trace == {key: v * traced for key, v in per_call.items()},
@@ -3766,42 +3854,226 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     return rec
 
 
-def uncaptured_run(method, model_name, batch, data, seed, val, dev="cuda",
-                   hw=HW, k=CAPTURE_K):
-    """One K-step call of a method whose step takes a decision on the host,
-    through the Trainer: uncaptured, the reason in the Trainer and its log,
-    the launches of K eager steps."""
+def capture_spec(method, batch, seed, n_slices):
+    """capture_run's keyword arguments for a method: where its run starts
+    and how many calls it takes so that it crosses its variants."""
+    out = {}
+    if method in CAPTURE_CUT:
+        out.update(timed=CAPTURE_K, traced=1)
+    if method == "ustm":
+        calls = CAPTURE_USTM_CALLS
+        out.update(calls=calls, start=ustm_start(seed, CAPTURE_K * calls))
+    elif method == "s2l":
+        out.update(start=CAPTURE_S2L_START, refresh=True,
+                   flags={"thr_iter": CAPTURE_S2L_START + 2,
+                          "thr_conf": 0.04})
+    elif method == "scribblevc":
+        out["start"] = svc_gate_step(n_slices, batch) - 2
+    return out
+
+
+def _svc_steps(bundle, batches, seed, dev, n):
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    state = bundle.state
+    for i in range(n):
+        m = bundle.step_fn(state, batches[i % len(batches)],
+                           split_rngs(seed, state.step, dev), bundle.aux)
+    return m
+
+
+def remat_cell(data, batch, seed, dev="cuda", hw=HW, k=CAPTURE_K,
+               check=False):
+    """ScribbleVC at `batch` with cfg.remat: from one state two steps before
+    the memory gate opens, k eager steps with remat and without (peak GB
+    of each, and the peak above the resident state; with `check`, every
+    leaf and metric bit-equal, and one captured k-step remat call
+    bit-equal to the eager remat steps); then, gate open, the captured
+    ms/step of each (k replays timed after the capture) and its peak. The
+    snapshots are kept on the host, so that both peaks see the same
+    resident tensors."""
+    import torch
+
     from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.graph import WARMUP_STEPS, CapturedStep
+
+    cfg = TrainConfig(
+        method="scribblevc", model="scribblevc", batch_size=batch,
+        max_iterations=10 ** 4, compute_dtype="bfloat16", seed=seed,
+        device=dev, patch_size=(hw, hw), sup_type="scribble", remat=True)
+    bundle, new_batches = method_bundle(cfg, data, None)
+    state, model = bundle.state, bundle.model
+    start = svc_gate_step(len(data), batch) - 2
+    state.set_host_counts({key: start for key in state.host_counts()})
+    it = new_batches()
+    batches = [next(it) for _ in range(k)]
+    start_leaves = _cpu_leaves(state_leaves(state))
+    out, leaves, metrics = {"batch": batch, "start": start, "k": k}, {}, {}
+    for remat in (True, False):
+        model.remat = remat
+        _restore(state, start_leaves)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        metrics[remat] = {key: v.cpu() for key, v in _metrics_leaves(
+            _svc_steps(bundle, batches, seed, dev, k)).items()}
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated()
+        out[f"eager_peak_gb_remat{int(remat)}"] = peak / 1e9
+        out[f"eager_above_resident_gb_remat{int(remat)}"] = \
+            (peak - resident) / 1e9
+        leaves[remat] = _cpu_leaves(state_leaves(state))
+    if check:
+        bad, worst = leaves_diff(leaves[False], leaves[True])
+        out.update(leaves=len(leaves[True]), remat_leaves_differing=bad,
+                   remat_max_abs_diff=worst, remat_metrics_differing=sorted(
+                       key for key, v in metrics[True].items()
+                       if not torch.equal(v, metrics[False][key])))
+        model.remat = True
+        _restore(state, start_leaves)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_counts()
+        captured = CapturedStep(bundle.step_fn, state, bundle.aux, seed,
+                                bundle.variant)
+        got_metrics = {key: v.cpu() for key, v in _metrics_leaves(
+            captured(batches)).items()}
+        sync(dev)
+        counts = launch_counts()
+        bad_c, worst_c = leaves_diff(leaves[True],
+                                     _cpu_leaves(state_leaves(state)))
+        expected = {key: v * (WARMUP_STEPS + 1) * len(captured.graphs)
+                    for key, v in per_step_counts("scribblevc").items()}
+        out.update(captured_graphs=len(captured.graphs),
+                   captured_leaves_differing=bad_c,
+                   captured_max_abs_diff=worst_c,
+                   captured_metrics_differing=sorted(
+                       key for key, v in metrics[True].items()
+                       if not torch.equal(v, got_metrics[key])),
+                   launches=counts, expected=expected)
+        del captured
+    for remat in (True, False):  # the gate open: one graph each
+        model.remat = remat
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        captured = CapturedStep(bundle.step_fn, state, bundle.aux, seed,
+                                bundle.variant)
+        captured(batches)
+        sync(dev)
+        t0 = time.perf_counter()
+        captured(batches)
+        sync(dev)
+        out[f"captured_ms_per_step_remat{int(remat)}"] = \
+            1e3 * (time.perf_counter() - t0) / k
+        peak = torch.cuda.max_memory_allocated()
+        out[f"captured_peak_gb_remat{int(remat)}"] = peak / 1e9
+        out[f"captured_above_resident_gb_remat{int(remat)}"] = \
+            (peak - resident) / 1e9
+        del captured
+    if check:
+        expect(not out["remat_leaves_differing"]
+               and not out["remat_metrics_differing"],
+               f"remat b{batch}: {k} eager steps differ from remat 0 in "
+               f"{out['remat_leaves_differing'][:8]} (max "
+               f"{out['remat_max_abs_diff']}), metrics "
+               f"{out['remat_metrics_differing']}")
+        expect(out["captured_graphs"] == 2
+               and not out["captured_leaves_differing"]
+               and not out["captured_metrics_differing"],
+               f"remat b{batch}: the captured call ({out['captured_graphs']} "
+               f"graphs) differs from its eager steps in "
+               f"{out['captured_leaves_differing'][:8]}, metrics "
+               f"{out['captured_metrics_differing']}")
+        expect(out["launches"] == out["expected"],
+               f"remat b{batch}: launches {out['launches']} != "
+               f"{out['expected']}")
+    return out
+
+
+def remat_cli(seed, data, val, dev="cuda", hw=HW, k=CAPTURE_K,
+              epochs=REMAT_CLI_EPOCHS):
+    """train_scribblevc ACDC --steps_per_call k over `epochs` epochs (a step
+    each on SVC_SLICES slices at batch 6, the memory gate opening at the
+    sixth), with --remat 1 and with --remat 0 (cli.scribblevc_main, the
+    bundle from in-memory data): both captured (two graphs), the final
+    states bit-equal."""
+    from wsl4mis_torch import cli
     from wsl4mis_torch.engine.trainer import Trainer
 
-    snap = os.path.join(ROOT, "build", "chip_smoke", "uncaptured", method)
-    cfg = TrainConfig(
-        method=method, model=model_name, batch_size=batch,
-        labeled_bs=batch // 2, max_iterations=k, val_every=10 ** 9,
-        ckpt_every=10 ** 9, compute_dtype="bfloat16", seed=seed, device=dev,
-        patch_size=(hw, hw), sup_type=sup_type_of(method),
-        snapshot_root=snap, steps_per_call=k)
-    bundle, _ = method_bundle(cfg, data, val)
-    trainer = Trainer(cfg, bundle, use_tensorboard=False)
-    reset_counts()
-    trainer.train()
-    sync(dev)
-    counts = launch_counts()
-    expected = {key: v * k for key, v in per_step_counts(
-        model_name, method).items()}
-    with open(os.path.join(cfg.snapshot_path, "log.txt")) as f:
-        logged = [line.strip() for line in f if "uncaptured" in line]
-    rec = {"method": method, "reason": trainer.uncaptured,
-           "logged": logged, "steps": bundle.state.step, "launches": counts,
-           "expected": expected}
-    expect(trainer.captured is None and trainer.uncaptured
-           and trainer.uncaptured == bundle.host_decision
-           and any(trainer.uncaptured in line for line in logged),
-           f"{method}: uncaptured {trainer.uncaptured!r}, logged {logged}")
-    expect(bundle.state.step == k and counts == expected,
-           f"{method}: {bundle.state.step} steps, launches {counts} != "
-           f"{expected}")
+    snap = os.path.join(ROOT, "build", "chip_smoke", "remat_cli")
+    made = []
+
+    class InMemory:
+        @staticmethod
+        def build(cfg):
+            return method_bundle(cfg, data, val)[0]
+
+    def trainer(cfg, bundle, use_tensorboard=True):
+        made.append(Trainer(cfg, bundle, use_tensorboard=False))
+        return made[-1]
+
+    runs = {}
+    saved = cli.get_method, cli.Trainer
+    cli.get_method, cli.Trainer = (lambda name: InMemory), trainer
+    try:
+        for remat in (1, 0):
+            argv = ["--batch_size", str(SVC_N), "--max_epoches", str(epochs),
+                    "--val_every_epoches", "1000", "--ckpt_epoches", "1000",
+                    "--seed", str(seed), "--patch_size", f"[{hw}, {hw}]",
+                    "--snapshot_root", os.path.join(snap, str(remat)),
+                    "--steps_per_call", str(k), "--remat", str(remat),
+                    "--device", dev]
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.scribblevc_main(argv, "ACDC")
+            sync(dev)
+            t = made[-1]
+            runs[remat] = {
+                "wall_s": time.perf_counter() - t0,
+                "remat": t.cfg.remat, "steps": t.state.step,
+                "graphs": len(t.captured.graphs) if t.captured else 0,
+                "launches": launch_counts(),
+                "leaves": _snapshot(state_leaves(t.state))}
+            made[-1] = None
+            gc.collect()
+    finally:
+        cli.get_method, cli.Trainer = saved
+    bad, worst = leaves_diff(runs[1].pop("leaves"), runs[0].pop("leaves"))
+    rec = {"epochs": epochs, "k": k, "runs": runs, "leaves_differing": bad,
+           "max_abs_diff": worst}
+    expect(all(r["graphs"] == 2 and r["steps"] == epochs
+               for r in runs.values())
+           and runs[1]["remat"] and not runs[0]["remat"],
+           f"train_scribblevc --remat: {runs}")
+    expect(not bad, f"train_scribblevc --remat 1 ends off --remat 0 in "
+                    f"{bad[:8]} (max {worst})")
     return rec
+
+
+def remat_part(seed, svc_data, val, dev="cuda", hw=HW, widths=None):
+    """The remat part of phase 10: remat_cell at each of REMAT_BATCHES (the
+    first with its checks) and remat_cli."""
+    import torch
+
+    from wsl4mis_torch.data import synthetic_slices
+
+    t0 = time.perf_counter()
+    cells = []
+    for batch in REMAT_BATCHES:
+        data = svc_data if batch == SVC_N else synthetic_slices(
+            2 * batch, (hw, hw), seed=seed + 2, sup_type="scribble")
+        check = batch == SVC_N  # the larger batch: its memory and time
+        cells.append(remat_cell(data, batch, seed, dev, hw,
+                                k=CAPTURE_K if check else 2, check=check))
+        gc.collect()
+        torch.cuda.empty_cache()
+    cli_rec = remat_cli(seed, svc_data, val, dev, hw)
+    return {"cells": cells, "cli": cli_rec, "s": time.perf_counter() - t0}
 
 
 def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
@@ -3852,7 +4124,8 @@ def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
     with open(os.path.join(cfg.snapshot_path, "log.txt")) as f:
         logged = [line.strip() for line in f if "steps_per_call" in line]
     loss_vals = [float(v) for v in losses]
-    capture_s = trainer.captured.capture_s if trainer.captured else None
+    capture_s = (sum(trainer.captured.capture_s.values())
+                 if trainer.captured else None)
     rec = {"steps": steps, "k": k, "val_every": trainer.val_every,
            "log_every": trainer.log_every, "vals": vals, "logged": logged,
            "launches": counts, "expected": expected, "losses": loss_vals,
@@ -3914,31 +4187,31 @@ def capture_profile(seed, data, dev="cuda", hw=HW, k=2, n=4):
 
 
 def capture_phase(seed, datasets, val, card, eager_dice, dev="cuda", hw=HW):
-    """Phase 10: capture_run for the nine methods, uncaptured_run for the
-    other eight, capture_cli, capture_profile; the captured line."""
+    """Phase 10: capture_run for the 17 methods, the remat part,
+    capture_cli, capture_profile; the captured line."""
     import torch
 
     t0 = time.perf_counter()
     runs = []
     for method, model_name, batch, key in CAPTURE_RUNS:
-        runs.append(capture_run(method, model_name, batch, datasets[key],
-                                seed, dev, hw))
+        data = datasets[key]
+        runs.append(capture_run(
+            method, model_name, batch, data, seed, dev, hw,
+            **capture_spec(method, batch, seed, len(data))))
         gc.collect()
         torch.cuda.empty_cache()
-    uncaptured = [uncaptured_run(method, model_name, batch, datasets[key],
-                                 seed, val, dev, hw)
-                  for method, model_name, batch, key in UNCAPTURED_RUNS]
+    remat = remat_part(seed, datasets["svc"], val, dev, hw)
     cli_run = capture_cli(seed, datasets["dense"], val, eager_dice, dev, hw)
     prof = capture_profile(seed, datasets["dense"], dev, hw)
-    out = {"card": card, "runs": runs, "uncaptured": uncaptured,
-           "cli": cli_run, "profile": prof,
-           "phase_s": time.perf_counter() - t0}
+    out = {"card": card, "runs": runs, "remat": remat, "cli": cli_run,
+           "profile": prof, "phase_s": time.perf_counter() - t0}
     line = {"card": card, "phase_s": out["phase_s"], "k": CAPTURE_K,
             "runs": [{key: r[key] for key in (
-                "method", "batch", "leaves", "leaves_differing",
-                "metrics_differing", "eager_ms_per_step",
+                "method", "batch", "start", "calls", "variants",
+                "replay_reorders", "leaves", "leaves_differing",
+                "metrics_differing", "timed", "eager_ms_per_step",
                 "captured_ms_per_step", "capture_s", "eager_peak_gb",
-                "captured_peak_gb")}
+                "captured_peak_gb", "run_s")}
                 | {"busy_share_eager":
                    r["profile_eager"]["device_busy_share"],
                    "busy_share_captured":
@@ -3950,7 +4223,14 @@ def capture_phase(seed, datasets, val, card, eager_dice, dev="cuda", hw=HW):
                    "replay_launches_per_call":
                    r["trace_launches_per_call"]}
                 for r in runs],
-            "uncaptured": {r["method"]: r["reason"] for r in uncaptured},
+            "remat": {"cells": [{key: v for key, v in c.items()
+                                 if key not in ("launches", "expected")}
+                                for c in remat["cells"]],
+                      "cli": {"leaves_differing":
+                              remat["cli"]["leaves_differing"],
+                              "wall_s": {r: v["wall_s"] for r, v in
+                                         remat["cli"]["runs"].items()}},
+                      "s": remat["s"]},
             "cli": {key: cli_run[key] for key in (
                 "steps", "val_every", "log_every", "vals", "eager_dice",
                 "ms_per_step", "capture_s", "wall_s")},
@@ -4409,8 +4689,10 @@ def main(argv=None):
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
         "inference"] + [r for r in zoo["models"] if "launches" in r] + (
         resume["runs"] + [resume["cli"]]) + dp_launch_records(dp) + (
-        surface_launch_records(surface)) + captured["runs"] + captured[
-        "uncaptured"] + [captured["cli"]]
+        surface_launch_records(surface)) + captured["runs"] + [
+        {"launches": c["launches"]} for c in captured["remat"]["cells"]
+        if "launches" in c] + [r for r in captured["remat"]["cli"][
+            "runs"].values()] + [captured["cli"]]
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)

@@ -81,7 +81,8 @@ EVERY_FLAG = [
     "--ckpt_every", "19", "--log_every", "3", "--compute_dtype", "float32",
     "--snapshot_root", "snap", "--resume", "--data_limit", "21",
     "--aug_mode", "host", "--encoder_weights", "enc.msgpack",
-    "--num_devices", "3", "--steps_per_call", "5", "--profile_steps", "2"]
+    "--num_devices", "3", "--steps_per_call", "5", "--profile_steps", "2",
+    "--remat", "1"]
 
 
 def _shared_fields(port_cfg, jax_cfg):
@@ -112,14 +113,14 @@ def test_config_from_args_matches_the_jax_cli(name, argv):
 
 
 def test_the_parser_keeps_no_tpu_flag():
-    """The TPU-only flags are refused; --steps_per_call and --profile_steps
-    (ported) parse to the JAX defaults."""
+    """The TPU-only flags are refused; --steps_per_call, --profile_steps and
+    --remat (ported) parse to the JAX defaults."""
     parser = cli.build_parser({})
-    for flag in ("--device_data", "--remat", "--fast_prng"):
+    for flag in ("--device_data", "--fast_prng"):
         with pytest.raises(SystemExit):
             parser.parse_args([flag, "1"])
     jax_defaults = jcli.build_parser({}).parse_args([])
-    for name in ("steps_per_call", "profile_steps"):
+    for name in ("steps_per_call", "profile_steps", "remat"):
         assert getattr(parser.parse_args([]), name) == \
             getattr(jax_defaults, name)
     assert parser.parse_args([]).device == "cuda"
@@ -180,7 +181,8 @@ SVC_ARGV = {
              "--val_every_epoches", "2", "--ckpt_epoches", "5",
              "--light_val", "1", "--resume", "1", "--lr", "0.001",
              "--batch_size", "4", "--patch_size", "[128, 128]",
-             "--seed", "5", "--exp", "X", "--steps_per_call", "2"],
+             "--seed", "5", "--exp", "X", "--steps_per_call", "2",
+             "--remat", "1"],
     "MSCMR": ["--max_epoches", "3", "--val_every_epoches", "2",
               "--lr", "0.001", "--batch_size", "4", "--seed", "5",
               "--compute_dtype", "float32", "--data_limit", "9"],

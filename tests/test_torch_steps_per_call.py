@@ -3,9 +3,10 @@
 call run eagerly; on the card chip_smoke's phase 10 holds the captured
 CUDA graph to the eager steps).
 
-* Every method runs K = 2 steps a call, and its bundle says whether its
-  step can be captured (``host_decision``: None for the nine methods of the
-  main path and the pCE family, the reason for the other eight).
+* Every method runs K = 2 steps a call, and all 17 can be captured on the
+  card: no bundle names a host decision; ustm, s2l and scribblevc name the
+  step's variant (``MethodBundle.variant``, a graph for each value), the
+  others have one shape of computation.
 * A K = 3 run of 6 steps is bit-equal to the K = 1 run for
   fully_supervised, dmpls, pce_gatedcrf and uamt (parameters, BN
   statistics, momenta, extras, the step and optimizer counts, and each
@@ -53,9 +54,8 @@ from wsl4mis_torch.models import net_factory  # noqa: E402
 HW, SVC_HW, B = 32, 64, 4
 FEATURES = (4, 8, 8, 16, 16)
 SVC_WIDTHS = dict(base_channel=8, embed_dim=32, num_heads=2)
-CAPTURABLE = ("fully_supervised", "pce", "dmpls", "pce_random_walker",
-              "pce_tv", "pce_entropy_mini", "pce_gatedcrf",
-              "pce_mumford_shah", "pce_intensity_variance")
+VARIANTS = {"ustm": {"rot_times"}, "s2l": {"gate"},
+            "scribblevc": {"use_class_rep"}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,10 +110,11 @@ def test_every_method_runs_k_steps_a_call(narrow, tmp_path, method):
     bundle, leaves, calls = _train(method, 2, 2, tmp_path)
     assert leaves["/step"] == 2 and len(calls) == 1
     assert np.isfinite(float(calls[0]["total_loss"]))
-    if method in CAPTURABLE:
-        assert bundle.host_decision is None
+    assert not hasattr(bundle, "host_decision")
+    if method in VARIANTS:
+        assert set(bundle.variant(bundle.state, 3)) == VARIANTS[method]
     else:
-        assert isinstance(bundle.host_decision, str) and bundle.host_decision
+        assert bundle.variant is None
 
 
 def _equal(a, b):

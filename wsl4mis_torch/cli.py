@@ -138,7 +138,7 @@ METHOD_DEFAULTS = {
 
 def build_parser(defaults: dict) -> argparse.ArgumentParser:
     """The train scripts' flags (wsl4mis_tpu/cli.py:20-74, the reference's
-    names) with `defaults`, less the TPU-only --device_data, --remat and
+    names) with `defaults`, less the TPU-only --device_data and
     --fast_prng, plus --device."""
     p = argparse.ArgumentParser()
     add = p.add_argument
@@ -183,6 +183,9 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
     add("--aug_mode", type=str, default="device", choices=["device", "host"],
         help="device: in-step augmentation; host: exact reference "
              "augment-then-zoom semantics on the host")
+    add("--remat", type=int, default=0,
+        help="1: checkpoint ScribbleVC's Conformer stages (memory for a "
+             "forward of them)")
     add("--encoder_weights", type=str, default=None,
         help="efficient_unet: a converted encoder file "
              "(convert_torch_weights)")
@@ -229,6 +232,7 @@ def config_from_args(args, method: str) -> TrainConfig:
         profile_steps=args.profile_steps,
         data_limit=args.data_limit,
         aug_mode=args.aug_mode,
+        remat=bool(args.remat),
         device=args.device,
         num_devices=args.num_devices,
         encoder_weights=args.encoder_weights,
@@ -287,10 +291,10 @@ def resolve_script(name: str) -> tuple[str, dict]:
 
 
 def scribblevc_parser(dataset: str) -> argparse.ArgumentParser:
-    """The flags of scripts/train_{ACDC,MSCMR}_scribblevc.py, less the
-    TPU-only --remat, plus --device. MSCMR trains on MSCMRfold and has no
-    fold, steps-per-call, warm start, light validation, resume or checkpoint
-    cadence flag."""
+    """The flags of scripts/train_{ACDC,MSCMR}_scribblevc.py, plus
+    --device. MSCMR trains on MSCMRfold and has no fold, steps-per-call,
+    remat, warm start, light validation, resume or checkpoint cadence
+    flag."""
     acdc = dataset == "ACDC"
     p = argparse.ArgumentParser(prog=f"train_scribblevc {dataset}")
     add = p.add_argument
@@ -311,7 +315,11 @@ def scribblevc_parser(dataset: str) -> argparse.ArgumentParser:
     add("--data_limit", type=int, default=None)
     if acdc:
         add("--steps_per_call", type=int, default=1,
-            help="K train steps per call (ScribbleVC's run uncaptured)")
+            help="K train steps per call (on the card: captured CUDA "
+                 "graphs, one for each side of the memory gate)")
+        add("--remat", type=int, default=0,
+            help="1: checkpoint the Conformer stages (memory for a "
+                 "forward of them)")
         add("--pretrain_weights", type=str, default="",
             help="checkpoint to warm-start from, the port's or the JAX "
                  "package's (reference train_ACDC_scribblevc.py:154-156)")
@@ -338,7 +346,8 @@ def scribblevc_main(argv, dataset: str) -> str:
         patch_size=tuple(ast.literal_eval(args.patch_size)), seed=args.seed,
         method="scribblevc", compute_dtype=args.compute_dtype,
         snapshot_root=args.snapshot_root, data_limit=args.data_limit,
-        device=args.device, max_iterations=1)
+        remat=acdc and bool(args.remat), device=args.device,
+        max_iterations=1)
     bundle = get_method("scribblevc").build(cfg)
     if acdc and args.pretrain_weights:
         load_model_checkpoint(args.pretrain_weights, bundle.model)

@@ -12,9 +12,10 @@ otherwise than its K = 1 run; here every step keeps its own (seed, step)
 draws (``split_rngs``), so a K-step run is bit-equal to the K = 1 run on
 the same device, and a resumed run still draws what an uninterrupted one
 would. ``profile_steps`` writes a torch.profiler trace of the steps from
-iteration 10 to 10 + N. Not ported: the TPU-only knobs fast_prng (a JAX
-PRNG stream), device_data (the port always stages the dataset), remat
-(ScribbleVC's stage checkpointing, a later slice) and debug_nans."""
+iteration 10 to 10 + N. ``remat`` checkpoints ScribbleVC's Conformer
+stages (less memory for one more forward of them, the same results). Not
+ported: the TPU-only knobs fast_prng (a JAX PRNG stream), device_data (the
+port always stages the dataset) and debug_nans."""
 
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ class TrainConfig:
                                         # replayed K times; cadences
                                         # rounded to multiples of K)
     compute_dtype: str = "bfloat16"     # bfloat16 | float32
+    remat: bool = False                 # checkpoint ScribbleVC's Conformer
+                                        # stages: recompute them in the
+                                        # backward instead of keeping them
     resume: bool = False
     profile_steps: int = 0              # >0: a torch.profiler trace of
                                         # iterations 10 .. 10 + N

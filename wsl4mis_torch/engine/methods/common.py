@@ -22,7 +22,7 @@ from ...data.augment import HostRandomGenerator
 from ...models import net_factory
 from ...models.factory import MODEL_NUM_OUTPUTS
 from ...ops import losses
-from ...utils.device import resolve_device
+from ...utils.device import capturing, resolve_device
 from ..config import TrainConfig
 from ..optim import ReferenceSGD
 from ..state import TrainState
@@ -63,18 +63,15 @@ class MethodBundle:
     batch_parts: tuple | None = None  # the batch's parts, each sharded on
                                     # its own over a process group
                                     # (semi_parts); None: one part
-    host_decision: str | None = None  # why the step cannot be captured
-                                    # in a CUDA graph (a value it takes on
-                                    # the host each step); None: it can
-                                    # (Trainer, steps_per_call > 1)
-
-
-# MethodBundle.host_decision of the semi-supervised family (mean_teacher's
-# methods, deep_adversarial)
-SEMI_HOST_DECISION = (
-    "the semi-supervised family's step takes host step counts: its "
-    "consistency ramp, the EMA teacher's decay, uamt's certainty threshold "
-    "and DAN's Adam count")
+    variant: Callable | None = None  # (state, seed) -> {keyword: value}:
+                                    # the step's arguments that the host
+                                    # decides at state.step (ustm's
+                                    # rot_times, s2l's and scribblevc's
+                                    # gates), which its eager step decides
+                                    # alike when not given; a captured
+                                    # step keeps a graph for each value
+                                    # (engine.graph). None: one shape of
+                                    # computation
 
 
 def compute_dtype(cfg: TrainConfig) -> torch.dtype:
@@ -258,7 +255,12 @@ def supervised_ce_dice(outputs, labels, num_classes: int):
 
 def sigmoid_rampup(current, rampup_length: float):
     """exp(-5 (1 - t)^2), t = clip(current, 0, length) / length, for an int
-    step or a tensor of steps; an f32 tensor (on the tensor's device)."""
+    step or a tensor of steps; an f32 tensor (on the tensor's device). A
+    step passes a tensor of its step (``TrainState.step_tensor``): an int
+    makes a CPU tensor, which a capture would freeze, so it raises there."""
+    if not isinstance(current, torch.Tensor) and capturing():
+        raise RuntimeError("sigmoid_rampup of a host step under capture: "
+                           "pass the state's step_tensor()")
     cur = torch.as_tensor(current)
     if rampup_length == 0:
         return torch.ones((), device=cur.device)

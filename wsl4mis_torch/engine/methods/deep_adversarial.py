@@ -13,7 +13,9 @@ train_deep_adversarial_network_2D.py:100-180). Both phases run in one step:
 
 The discriminator's parameters and Adam state live in state.extra
 ({"disc_params", "disc_opt_state"}; the discriminator module computes with
-those very tensors). Its channel-dropout masks draw from
+those very tensors). The ramp reads ``TrainState.step_tensor``, and the
+Adam bias corrections of the discriminator's count are step scalars, so
+the step takes no decision on the host and a CUDA graph can capture it. Its channel-dropout masks draw from
 rngs["feature_perturb"]; a caller may pass `channel_masks` instead. Under a
 process group each rank holds its rows of both parts, and the
 discriminator's gradients are averaged over the ranks as the segmenter's.
@@ -28,9 +30,8 @@ from ...models.discriminator import FCDiscriminator
 from ...ops import losses
 from ...utils.device import resolve_device
 from ..config import TrainConfig
-from ..optim import adam_init, reference_adam
+from ..optim import adam_corrections, adam_init, reference_adam
 from .common import (
-    SEMI_HOST_DECISION,
     MethodBundle,
     compute_dtype,
     make_model_and_state,
@@ -62,6 +63,19 @@ def discriminator_extra(disc: FCDiscriminator) -> dict:
     return {"disc_params": params, "disc_opt_state": adam_init(params)}
 
 
+DISC_BETAS = (0.9, 0.99)  # the discriminator's Adam (reference_adam's)
+
+
+def disc_corrections(state) -> tuple:
+    """The discriminator's next Adam update's bias corrections (of its
+    count + 1) as step scalars."""
+    return tuple(state.step_scalar(f"disc_adam_{i}", lambda s, i=i:
+                                   adam_corrections(
+                                       s.extra["disc_opt_state"]["count"]
+                                       + 1, *DISC_BETAS)[i])
+                 for i in range(2))
+
+
 def make_step(cfg: TrainConfig, disc: FCDiscriminator):
     num_classes = cfg.num_classes
     labeled_bs = resolve_labeled_bs(cfg)
@@ -85,8 +99,9 @@ def make_step(cfg: TrainConfig, disc: FCDiscriminator):
         adversarial = losses.cross_entropy(d_out, torch.ones(
             d_out.shape[0], dtype=torch.int64, device=x.device))
         weight = cfg.consistency * sigmoid_rampup(
-            state.step // 150, cfg.consistency_rampup)
+            state.step_tensor() // 150, cfg.consistency_rampup)
         loss = supervised + weight * adversarial
+        corrections = disc_corrections(state)
         state.minimize(loss)
 
         # D-step
@@ -106,7 +121,8 @@ def make_step(cfg: TrainConfig, disc: FCDiscriminator):
         parallel.average_gradients(grads)
         disc.requires_grad_(False)
         reference_adam(state.extra["disc_params"], dict(zip(names, grads)),
-                       state.extra["disc_opt_state"])
+                       state.extra["disc_opt_state"], b1=DISC_BETAS[0],
+                       b2=DISC_BETAS[1], corrections=corrections)
         return {
             "total_loss": loss.detach(),
             "loss_ce": loss_ce.detach(),
@@ -129,8 +145,7 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
                         step_fn=make_step(cfg, disc),
                         aux=stage_dataset(cfg, stack), data_iter=it,
                         val_volumes=val, steps_per_epoch=spe,
-                        batch_parts=semi_parts(cfg),
-                        host_decision=SEMI_HOST_DECISION)
+                        batch_parts=semi_parts(cfg))
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -16,7 +16,10 @@ w = consistency * sigmoid_rampup(step // 300, consistency_rampup) on the
 step before the update; noise = clip(0.1 N(0, 1), -0.2, 0.2). The teacher
 of mean_teacher and uamt is the student's network over EMA parameters
 (state.extra["ema_params"]), run in train mode without gradients and
-updated after each SGD step (state.ema_update, alpha = cfg.ema_decay).
+updated after each SGD step (state.ema_apply, alpha = cfg.ema_decay).
+Every per-step value is on the device (the ramps and the threshold from
+``TrainState.step_tensor``, the EMA weights step scalars), so the step
+takes no decision on the host and a CUDA graph can capture it.
 
 The noises and teacher dropout draw from rngs["method"]; a caller may pass
 the noises instead (`noise`, `mc_noise`). Under a process group each rank
@@ -35,9 +38,8 @@ from ... import parallel
 from ...models.norm import FusedBatchNorm
 from ...ops import losses
 from ..config import TrainConfig
-from ..state import ema_copy, ema_update
+from ..state import ema_apply, ema_copy, ema_scalars
 from .common import (
-    SEMI_HOST_DECISION,
     MethodBundle,
     make_model_and_state,
     paired_data,
@@ -117,9 +119,10 @@ def mc_uncertainty(teacher, x, generator, noises=None, T=8):
     return -torch.sum(preds * torch.log(preds + 1e-6), dim=-1, keepdim=True)
 
 
-def certain_mask(uncertainty, step: int, max_iterations: int):
+def certain_mask(uncertainty, step, max_iterations: int):
     """1 where the uncertainty is under (0.75 + 0.25 * rampup(step,
-    max_iterations)) * ln 2, else 0 (f32)."""
+    max_iterations)) * ln 2, else 0 (f32); `step` a tensor (the state's
+    step_tensor())."""
     thresh = (0.75 + 0.25 * sigmoid_rampup(step, max_iterations)) * \
         math.log(2.0)
     return (uncertainty < thresh).float()
@@ -143,6 +146,7 @@ def make_step(cfg: TrainConfig):
 
     def step_fn(state, batch, rngs, aux=None, noise=None, mc_noise=None):
         lab = labeled_bs // parallel.world_size()  # the rank's rows
+        step = state.step_tensor()
         # the reference always augments here, aug_mode notwithstanding
         x, labels = prep_batch(rngs["aug"], batch, aux, labeled=lab)
         x_lab, y_lab = x[:lab], labels[:lab]
@@ -173,15 +177,15 @@ def make_step(cfg: TrainConfig):
                     dist = losses.softmax_mse_loss(out_unlab, ema_out)
                     unc = mc_uncertainty(teacher, x_unlab, gen, mc_noise)
                     consistency = masked_mse(
-                        certain_mask(unc, state.step, cfg.max_iterations),
-                        dist)
+                        certain_mask(unc, step, cfg.max_iterations), dist)
             weight = cfg.consistency * sigmoid_rampup(
-                state.step // 300, cfg.consistency_rampup)
+                step // 300, cfg.consistency_rampup)
             loss = supervised + weight * consistency
+        if method in TEACHER_METHODS:
+            ema_weights = ema_scalars(state, cfg.ema_decay)
         state.minimize(loss)
         if method in TEACHER_METHODS:
-            ema_update(state.extra["ema_params"], state.model, cfg.ema_decay,
-                       state.step)
+            ema_apply(state.extra["ema_params"], state.model, ema_weights)
         return {
             "total_loss": loss.detach(),
             "loss_ce": loss_ce.detach(),
@@ -203,8 +207,7 @@ def make_bundle(cfg: TrainConfig, labeled, unlabeled, val) -> MethodBundle:
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
                         aux=stage_dataset(cfg, stack), data_iter=it,
                         val_volumes=val, steps_per_epoch=spe,
-                        batch_parts=semi_parts(cfg),
-                        host_decision=SEMI_HOST_DECISION)
+                        batch_parts=semi_parts(cfg))
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

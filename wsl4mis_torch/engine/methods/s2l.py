@@ -17,7 +17,10 @@ mode and sets w <- alpha * softmax(logits) + (1 - alpha) * w.
 The gate is a Python comparison of the host step count, so it waits for
 nothing on the device; the pseudo-label term's metric is computed either
 way, without a gradient while the gate is closed (the JAX step multiplies
-it by 0, which adds nothing).
+it by 0, which adds nothing). It is the step's one host decision: the
+bundle's ``variant`` names it, and a captured step keeps one CUDA graph
+for each side. The refresh writes the buffer in place, so the graphs read
+it where it lies.
 """
 
 from __future__ import annotations
@@ -49,12 +52,18 @@ def pseudo_labels(scribbles, weights, thr_conf: float):
     return out
 
 
+def make_variant(cfg: TrainConfig):
+    """(state, seed) -> the step's host decision at state.step, its gate."""
+    return lambda state, seed: {"gate": state.step >= cfg.thr_iter}
+
+
 def make_step(cfg: TrainConfig):
     thr_conf = cfg.thr_conf
-    thr_iter = cfg.thr_iter
+    variant = make_variant(cfg)
 
-    def step_fn(state, batch, rngs, aux=None):
-        """batch {"index"} over the staged stack `aux`."""
+    def step_fn(state, batch, rngs, aux=None, gate=None):
+        """batch {"index"} over the staged stack `aux`; `gate`: the
+        pseudo-label term's (None: state.step >= thr_iter)."""
         idx = torch.as_tensor(batch["index"]).to(aux["images"].device,
                                                  torch.int64)
         images = aux["images"].index_select(0, idx)
@@ -66,7 +75,8 @@ def make_step(cfg: TrainConfig):
         outputs = state.model(x, train=True, rngs=rngs)
         loss_ce = losses.cross_entropy(outputs, scribbles, ignore_index=4)
         u_labels = pseudo_labels(scribbles, weights, thr_conf)
-        gate = state.step >= thr_iter
+        if gate is None:
+            gate = variant(state, None)["gate"]
         loss_u = losses.cross_entropy(
             outputs if gate else outputs.detach(), u_labels, ignore_index=4)
         loss = loss_ce + 0.5 * loss_u if gate else loss_ce
@@ -128,9 +138,7 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
                         aux=aux, data_iter=index_batches(cfg, train),
                         val_volumes=val,
                         steps_per_epoch=len(train) // cfg.batch_size,
-                        host_hook=host_hook,
-                        host_decision="its pseudo-label gate is a host "
-                        "comparison, step >= thr_iter")
+                        host_hook=host_hook, variant=make_variant(cfg))
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

@@ -20,6 +20,12 @@ The class memory (``state.extra["class_memory"]``) joins the forward from
 epoch 5 (``state.step // steps_per_epoch > 4``, the reference's ``epoch >
 4``); the gate is decided on the host, and a closed gate runs the forward
 without the memory, which is what the JAX step's traced 0 gate computes.
+It is the step's one host decision: the bundle's ``variant`` names it, and
+a captured step keeps one CUDA graph for each side. AdamW's bias
+corrections are device scalars (``ReferenceAdamW.load_scalars``).
+``cfg.remat`` checkpoints the Conformer's stages 2-12 (``ScribbleVC
+(remat=True)``): the same results, less memory, one more forward of
+them.
 
 Validation: the CAM rule with the memory injected (``cam_decision``, the
 reference's training-time rule) is logged; the mean-softmax rule without
@@ -102,13 +108,22 @@ def _prototype_health(model, memory) -> dict:
     }
 
 
+def make_variant(steps_per_epoch: int):
+    """(state, seed) -> the step's host decision at state.step: whether the
+    memory joins the forward (epoch > 4)."""
+    return lambda state, seed: {
+        "use_class_rep": state.step // steps_per_epoch > 4}
+
+
 def make_step(cfg: TrainConfig, steps_per_epoch: int):
     num_classes = cfg.num_classes
     ignore = 0 if cfg.sup_type == "label" else 4
+    variant = make_variant(steps_per_epoch)
 
-    def step_fn(state, batch, rngs, aux=None, beta=None):
+    def step_fn(state, batch, rngs, aux=None, beta=None, use_class_rep=None):
         """batch {"index"} over the staged `aux` (images, labels,
-        category), or {"image", "label", "category"} tensors."""
+        category), or {"image", "label", "category"} tensors;
+        `use_class_rep`: the memory gate (None: the epoch's)."""
         x, labels = prep_batch(rngs["aug"], batch, aux)
         if aux is not None and "index" in batch:
             idx = torch.as_tensor(batch["index"]).to(aux["category"].device,
@@ -119,10 +134,12 @@ def make_step(cfg: TrainConfig, steps_per_epoch: int):
         if beta is None:
             beta = torch.rand((), generator=rngs["method"],
                               device=x.device) + 1e-10
-        gate = state.step // steps_per_epoch > 4
+        if use_class_rep is None:
+            use_class_rep = variant(state, None)["use_class_rep"]
         memory = state.extra["class_memory"]
         pred1, pred2, (conv_cls, tran_cls) = state.model(
-            x, train=True, memory=memory, use_class_rep=gate, rngs=rngs)
+            x, train=True, memory=memory, use_class_rep=use_class_rep,
+            rngs=rngs)
         p1 = torch.softmax(pred1, dim=-1)
         p2 = torch.softmax(pred2, dim=-1)
         loss_ce = 0.5 * (
@@ -162,7 +179,8 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
     gen = torch.Generator().manual_seed(cfg.seed)
     model = net_factory("scribblevc", cfg.num_classes,
                         dtype=compute_dtype(cfg), generator=gen,
-                        batch_size=cfg.batch_size).to(device)
+                        batch_size=cfg.batch_size, remat=cfg.remat
+                        ).to(device)
     state = TrainState(model=model, opt=ReferenceAdamW(model.parameters()),
                        extra={"class_memory": model.init_memory(
                            cfg.patch_size, device)})
@@ -185,8 +203,7 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
         step_fn=make_step(cfg, steps_per_epoch), aux=aux,
         data_iter=index_batches(cfg, train), val_volumes=val,
         steps_per_epoch=steps_per_epoch,
-        host_decision="its class-memory gate is a host comparison on the "
-        "epoch, step // steps_per_epoch > 4",
+        variant=make_variant(steps_per_epoch),
         predictor=predictor(cam_decision, True),
         val_variables=val_variables,
         nan_val_metrics=True,

@@ -12,6 +12,11 @@ updated after each SGD step. The rotation, the noises and the teacher's
 dropout draw from rngs["method"] (the rotation from a host generator with
 that generator's seed, so no draw waits for the device); a caller may pass
 `rot_times`, `noise` and `mc_noise` instead.
+
+The rotation is the step's one host decision: the bundle's ``variant``
+draws it from (seed, step) as the step does, so a captured step keeps one
+CUDA graph a rotation. The ramps read ``TrainState.step_tensor`` and the
+EMA weights are step scalars.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ import torch
 
 from ...ops import losses
 from ..config import TrainConfig
-from ..state import ema_copy, ema_update
+from ..state import ema_apply, ema_copy, ema_scalars
 from .common import (
     MethodBundle,
     make_model_and_state,
     prep_batch,
+    rng_seeds,
     sigmoid_rampup,
     stage_dataset,
     standard_data,
@@ -41,6 +47,19 @@ from .mean_teacher import (
 )
 
 
+def rot_times_of(method_seed: int) -> int:
+    """The step's rotation, k ~ U{0..3}: one draw of a host generator seeded
+    with the seed of the step's rngs["method"]."""
+    host = torch.Generator().manual_seed(method_seed)
+    return int(torch.randint(0, 4, (), generator=host))
+
+
+def variant(state, seed: int) -> dict:
+    """The step's host decision at state.step: its rotation, from the seed
+    its rngs["method"] gets (``rng_seeds``)."""
+    return {"rot_times": rot_times_of(rng_seeds(seed, state.step)["method"])}
+
+
 def make_step(cfg: TrainConfig):
     augment = cfg.aug_mode != "host"
     teacher_of = EmaTeacher()
@@ -50,16 +69,16 @@ def make_step(cfg: TrainConfig):
         x, labels = prep_batch(rngs["aug"], batch, aux, augment=augment)
         gen = rngs["method"]
         if rot_times is None:
-            host = torch.Generator().manual_seed(gen.initial_seed())
-            rot_times = int(torch.randint(0, 4, (), generator=host))
+            rot_times = rot_times_of(gen.initial_seed())
+        step = state.step_tensor()
         x_rot = torch.rot90(x, rot_times, dims=(1, 2))
         teacher = teacher_of(state)
         if noise is None:
             noise = clamped_noise(gen, x_rot.shape)
         ema_out = teacher_forward(teacher, x_rot + noise, gen)
         mask = certain_mask(mc_uncertainty(teacher, x_rot, gen, mc_noise),
-                            state.step, cfg.max_iterations)
-        weight = sigmoid_rampup(state.step // 1000, 60.0)
+                            step, cfg.max_iterations)
+        weight = sigmoid_rampup(step // 1000, 60.0)
 
         outputs = state.model(x, train=True, rngs=rngs)
         loss_ce = losses.cross_entropy(outputs, labels, ignore_index=4)
@@ -67,8 +86,9 @@ def make_step(cfg: TrainConfig):
             torch.rot90(outputs, rot_times, dims=(1, 2)), ema_out)
         consistency = masked_mse(mask, dist)
         loss = loss_ce + weight * consistency
+        ema_weights = ema_scalars(state, 0.99)
         state.minimize(loss)
-        ema_update(state.extra["ema_params"], state.model, 0.99, state.step)
+        ema_apply(state.extra["ema_params"], state.model, ema_weights)
         return {
             "total_loss": loss.detach(),
             "loss_ce": loss_ce.detach(),
@@ -88,8 +108,7 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
                         aux=stage_dataset(cfg, train),
                         data_iter=train_batches(cfg, train), val_volumes=val,
                         steps_per_epoch=len(train) // cfg.batch_size,
-                        host_decision="it draws rot_times on the host each "
-                        "step (make_step's rot90 of the teacher's input)")
+                        variant=variant)
 
 
 def build(cfg: TrainConfig) -> MethodBundle:

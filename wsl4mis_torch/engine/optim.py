@@ -53,11 +53,11 @@ class ReferenceSGD:
     """Momentum SGD over `params`; `count` is the number of updates done.
 
     The update reads its learning rate from `lr_buffer`, a 0-d f32 tensor
-    on the parameters' device that `load_lr` fills with schedule(count):
-    an eager update fills it itself, a captured one reads what the
-    replay's caller loaded (``engine.graph``). It applies p - f32(lr * m),
-    the product rounded apart, as optax's scale_by_learning_rate and
-    apply_updates round it."""
+    on the parameters' device that `load_scalars` fills with
+    schedule(count): an eager update fills it itself, a captured one reads
+    what the replay's caller loaded (``engine.graph``). It applies p -
+    f32(lr * m), the product rounded apart, as optax's
+    scale_by_learning_rate and apply_updates round it."""
 
     def __init__(self, params, base_lr: float, max_iterations: int,
                  momentum: float = 0.9, weight_decay: float = 1e-4):
@@ -70,9 +70,9 @@ class ReferenceSGD:
         self.lr_buffer = torch.zeros((), dtype=torch.float32,
                                      device=self.params[0].device)
 
-    def load_lr(self) -> None:
-        """lr_buffer <- schedule(count) (a fill on the device, no
-        host-device sync)."""
+    def load_scalars(self) -> None:
+        """The next update's device scalars from the host count: lr_buffer
+        <- schedule(count) (a fill on the device, no host-device sync)."""
         self.lr_buffer.fill_(self.schedule(self.count))
 
     def zero_grad(self) -> None:
@@ -84,7 +84,7 @@ class ReferenceSGD:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         if not capturing():
-            self.load_lr()
+            self.load_scalars()
         grads = torch._foreach_add(grads, self.params,
                                    alpha=self.weight_decay)
         torch._foreach_mul_(self.momentum_buffers, self.momentum)
@@ -139,30 +139,53 @@ def adam_init(params: dict[str, torch.Tensor]) -> dict:
             "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
 
+def adam_corrections(count: int, b1: float, b2: float) -> tuple:
+    """Update `count`'s bias corrections (1 - b1^t, 1 - b2^t) as optax
+    computes them: an f32 power of the f32 count."""
+    t = np.float32(count)
+    one = np.float32(1.0)
+    return (float(one - np.float32(b1) ** t),
+            float(one - np.float32(b2) ** t))
+
+
+def correction_buffers(device) -> tuple:
+    """Two 0-d f32 device tensors for adam_corrections' values."""
+    return tuple(torch.zeros((), dtype=torch.float32, device=device)
+                 for _ in range(2))
+
+
+def fill_corrections(buffers: tuple, count: int, b1: float,
+                     b2: float) -> tuple:
+    """`buffers` <- adam_corrections(count, b1, b2), fills on the device
+    (no host-device sync); returns `buffers`."""
+    for buf, v in zip(buffers, adam_corrections(count, b1, b2)):
+        buf.fill_(v)
+    return buffers
+
+
 @torch.no_grad()
-def _adam_update(p: list, g: list, mu: list, nu: list, count: int,
+def _adam_update(p: list, g: list, mu: list, nu: list, corrections: tuple,
                  lr: float, b1: float, b2: float, eps: float,
                  weight_decay: float = 0.0) -> None:
-    """Update `count` (from 1) of optax's adam / adamw over lists of
-    tensors, in place on `p`, `mu` and `nu`:
+    """One update of optax's adam / adamw over lists of tensors, in place
+    on `p`, `mu` and `nu`:
 
         mu = b1 mu + (1 - b1) g,  nu = b2 nu + (1 - b2) g^2
         p  = p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)
 
     with mu_hat = mu / (1 - b1^t), nu_hat = nu / (1 - b2^t). Each product
     rounded apart, as optax's expressions; 1 - b in double, then f32 (its
-    Python-float arithmetic), the bias corrections in f32 (its f32 power
-    of the count)."""
-    t = np.float32(count)
-    one = np.float32(1.0)
+    Python-float arithmetic). `corrections`: the 0-d device tensors of the
+    update's count (adam_corrections), which a captured update reads."""
+    c1, c2 = corrections
     torch._foreach_mul_(mu, b1)
     torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
     torch._foreach_mul_(nu, b2)
     sq = torch._foreach_mul(g, g)
     torch._foreach_mul_(sq, 1.0 - b2)
     torch._foreach_add_(nu, sq)
-    upd = torch._foreach_div(mu, float(one - np.float32(b1) ** t))
-    denom = torch._foreach_div(nu, float(one - np.float32(b2) ** t))
+    upd = torch._foreach_div(mu, c1)
+    denom = torch._foreach_div(nu, c2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
     torch._foreach_div_(upd, denom)
@@ -197,16 +220,27 @@ def load_adam_optax_state(state: dict, tree, from_tree,
 def reference_adam(params: dict[str, torch.Tensor],
                    grads: dict[str, torch.Tensor], state: dict,
                    lr: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
-                   eps: float = 1e-8) -> None:
+                   eps: float = 1e-8, corrections: tuple | None = None
+                   ) -> None:
     """One update of torch.optim.Adam(lr, betas=(b1, b2), eps) =
     optax.adam(lr, b1, b2, eps), the DAN discriminator's optimizer
     (train_deep_adversarial_network_2D.py:111-112), in place on `params`
-    and `state`, in optax's order: mu_hat / (sqrt(nu_hat) + eps)."""
+    and `state`, in optax's order: mu_hat / (sqrt(nu_hat) + eps).
+    `corrections`: device scalars holding this update's bias corrections
+    (the DAN step's step scalars, which a captured step reads); None: they
+    are filled here from the host count, which a capture refuses."""
     names = list(params)
     state["count"] += 1
+    if corrections is None:
+        if capturing():
+            raise RuntimeError("reference_adam under capture needs its "
+                               "corrections as device scalars")
+        corrections = fill_corrections(
+            correction_buffers(params[names[0]].device), state["count"], b1,
+            b2)
     _adam_update([params[k] for k in names], [grads[k] for k in names],
                  [state["mu"][k] for k in names],
-                 [state["nu"][k] for k in names], state["count"], lr, b1, b2,
+                 [state["nu"][k] for k in names], corrections, lr, b1, b2,
                  eps)
 
 
@@ -214,10 +248,12 @@ class ReferenceAdamW:
     """optax.adamw(lr, b1, b2, eps, weight_decay) at a constant learning
     rate, ScribbleVC's optimizer (AdamW(5e-4, wd 5e-4, eps 1e-8),
     train_ACDC_scribblevc.py:146-147), with ReferenceSGD's interface
-    (`schedule` included): the update of `_adam_update` with the decay on
-    every parameter (no mask: BN scale and bias and the cls token too).
-    Not torch.optim.AdamW, which decays the parameter before the Adam step
-    and so rounds in another order."""
+    (`schedule`, `load_scalars` included): the update of `_adam_update`
+    with the decay on every parameter (no mask: BN scale and bias and the
+    cls token too). Not torch.optim.AdamW, which decays the parameter
+    before the Adam step and so rounds in another order. The bias
+    corrections are device scalars (`corrections`), filled as
+    ReferenceSGD fills its learning rate."""
 
     def __init__(self, params, lr: float = 5e-4, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -230,6 +266,12 @@ class ReferenceAdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.corrections = correction_buffers(self.params[0].device)
+
+    def load_scalars(self) -> None:
+        """The next update's bias corrections (of count + 1) into
+        `corrections`, fills on the device."""
+        fill_corrections(self.corrections, self.count + 1, self.b1, self.b2)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -239,8 +281,10 @@ class ReferenceAdamW:
     def step(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        if not capturing():
+            self.load_scalars()
         self.count += 1
-        _adam_update(self.params, grads, self.mu, self.nu, self.count,
+        _adam_update(self.params, grads, self.mu, self.nu, self.corrections,
                      self.lr, self.b1, self.b2, self.eps, self.weight_decay)
 
     def state_dict(self) -> dict:

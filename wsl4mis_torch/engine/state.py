@@ -9,12 +9,20 @@ package's ``save_train_state`` writes: {"step": 0-d int32, "params",
 class_memory)}. Loading copies into the state's own tensors, so the
 modules that compute with them (an EMA teacher, DAN's discriminator) see
 the loaded values; a key missing or left over raises and names it.
+
+Step scalars: every per-step value that a step computes on the host (the
+EMA decay, DAN's Adam corrections, the optimizer's learning rate or bias
+corrections) lives in a 0-d device tensor that the step reads, and the
+step count in `step_tensor()`. An eager step fills them where it takes
+them; a captured one (``engine.graph``) reads what ``load_step_scalars``
+filled before the replay, from the host counts (``host_counts``) as the
+step begins.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -49,6 +57,8 @@ class TrainState:
                        # discriminator's params and Adam state
     step_buffer: torch.Tensor | None = field(default=None, repr=False,
                                              compare=False)
+    scalars: dict = field(default_factory=dict, repr=False, compare=False)
+                       # name -> (0-d device tensor, fn(state) -> float)
 
     @property
     def device(self) -> torch.device:
@@ -67,12 +77,50 @@ class TrainState:
             self.step_buffer.fill_(self.step)
         return self.step_buffer
 
+    def step_scalar(self, name: str,
+                    fn: Callable[["TrainState"], float]) -> torch.Tensor:
+        """A 0-d f32 tensor on the state's device holding fn(self), a host
+        value (an f32-exact float) of the host counts as the step begins:
+        the step takes it before it moves any of them (its update, an
+        optimizer's count). An eager step fills it here, a captured one
+        reads what ``load_step_scalars`` filled; the first call allocates
+        it, and the latest `fn` of a name is the one loaded."""
+        entry = self.scalars.get(name)
+        buf = torch.zeros((), dtype=torch.float32, device=self.device) \
+            if entry is None else entry[0]
+        self.scalars[name] = (buf, fn)
+        if not capturing():
+            buf.fill_(fn(self))
+        return buf
+
     def load_step_scalars(self) -> None:
-        """Fill the step's device scalars from the host counts: the step and
-        the SGD's learning rate (``engine.graph`` calls it before a capture,
-        which must find the buffers allocated, and before every replay)."""
+        """Fill the step's device scalars from the host counts: the step,
+        each `step_scalar` and the optimizer's (``engine.graph`` calls it
+        before a capture, which must find the buffers allocated, and before
+        every replay)."""
         self.step_tensor()
-        self.opt.load_lr()
+        for buf, fn in self.scalars.values():
+            buf.fill_(fn(self))
+        self.opt.load_scalars()
+
+    def host_counts(self) -> dict[str, int]:
+        """The counts a step advances on the host, by path: the step, the
+        optimizer's count and every int of extra (DAN's Adam count)."""
+        out = {"step": self.step, "opt/count": self.opt.count}
+        _extra_counts(self.extra, "extra", out)
+        return out
+
+    def set_host_counts(self, counts: dict[str, int]) -> None:
+        """The inverse of host_counts (every path it gives)."""
+        self.step = counts["step"]
+        self.opt.count = counts["opt/count"]
+        for path, v in counts.items():
+            if path.startswith("extra/"):
+                *keys, last = path.split("/")[1:]
+                d = self.extra
+                for k in keys:
+                    d = d[k]
+                d[last] = v
 
     def minimize(self, loss: torch.Tensor) -> None:
         """Backward of `loss`, one optimizer update, step + 1. Under a
@@ -149,6 +197,14 @@ class TrainState:
 _DISC_NAMING = flax_naming()
 
 
+def _extra_counts(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _extra_counts(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, int):
+        out[prefix] = tree
+
+
 def _keys(extra):
     return None if extra is None else sorted(extra)
 
@@ -221,17 +277,45 @@ def ema_copy(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
-@torch.no_grad()
-def ema_update(teacher: dict[str, torch.Tensor], student: torch.nn.Module,
-               alpha: float, global_step: int) -> None:
-    """Mean-teacher EMA with warm-up, in place over the parameters (BN
-    scale and bias included, running statistics not): a = min(1 - 1/(step
-    + 1), alpha), teacher <- a teacher + (1 - a) student, in f32
+def ema_decay(alpha: float, global_step: int) -> tuple[float, float]:
+    """(a, 1 - a), a = min(1 - 1/(step + 1), alpha), in f32: the teacher's
+    and the student's weights of the EMA update after update `global_step`
     (update_ema_variables, train_weakly_supervised_ustm_2D.py:61-65)."""
     one = np.float32(1.0)
     a = min(one - one / (np.float32(global_step) + one), np.float32(alpha))
+    return float(a), float(one - a)
+
+
+def ema_scalars(state: TrainState, alpha: float) -> tuple:
+    """The EMA update's weights as step scalars of `state`: of the step
+    count after this step's update (taken before it)."""
+    return tuple(state.step_scalar(f"ema_{i}", lambda s, i=i: ema_decay(
+        alpha, s.step + 1)[i]) for i in range(2))
+
+
+@torch.no_grad()
+def ema_apply(teacher: dict[str, torch.Tensor], student: torch.nn.Module,
+              weights: tuple) -> None:
+    """teacher <- a teacher + (1 - a) student in place over the parameters
+    (BN scale and bias included, running statistics not), in f32, each
+    product rounded apart as the JAX update rounds them; `weights` (a,
+    1 - a) as 0-d device tensors (ema_scalars)."""
+    a, b = weights
     params = list(student.named_parameters())
     t = [teacher[k] for k, _ in params]
-    torch._foreach_mul_(t, float(a))
-    torch._foreach_add_(t, [p.detach() for _, p in params],
-                        alpha=float(one - a))
+    torch._foreach_mul_(t, a)
+    torch._foreach_add_(t, torch._foreach_mul([p.detach() for _, p in params],
+                                              b))
+
+
+def ema_update(teacher: dict[str, torch.Tensor], student: torch.nn.Module,
+               alpha: float, global_step: int) -> None:
+    """Mean-teacher EMA with warm-up after update `global_step` (an int
+    host count: ema_apply at ema_decay's weights, filled here, which a
+    capture refuses; a step takes ema_scalars)."""
+    if capturing():
+        raise RuntimeError("ema_update under capture: take ema_scalars")
+    device = next(iter(teacher.values())).device
+    ema_apply(teacher, student, tuple(
+        torch.full((), w, dtype=torch.float32, device=device)
+        for w in ema_decay(alpha, global_step)))

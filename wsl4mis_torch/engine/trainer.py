@@ -25,10 +25,11 @@ cadences are rounded to multiples of K (``_round``, with the JAX
 trainer's warning where K does not divide val_every), 4·K batches are
 prefetched, and each call returns its K-th step's metrics; the host hook
 runs after each call. On the card a call replays the step captured in a
-CUDA graph K times (``engine.graph.CapturedStep``), unless the method
-takes a decision on the host each step (``MethodBundle.host_decision``)
-or a process group runs: then, as on the CPU, the K steps run eagerly.
-The Trainer logs once which way it went and why. Every step keeps its
+CUDA graph K times (``engine.graph.CapturedStep``; every method, one
+graph for each value of its ``MethodBundle.variant``), unless a process
+group runs: then, as on the CPU, the K steps run eagerly. The Trainer
+logs once which way it went and why, and each variant's capture as it
+happens. Every step keeps its
 (cfg.seed, step) draws, so a K-step run is bit-equal to the K = 1 run.
 ``cfg.profile_steps`` N > 0 writes a torch.profiler trace (Chrome JSON) of
 the steps from iteration 10 to 10 + N into ``{snapshot}/profile``, opened
@@ -123,10 +124,13 @@ class Trainer:
             self.uncaptured = self._uncaptured_reason()
             if self.uncaptured is None:
                 self.captured = CapturedStep(bundle.step_fn, self.state,
-                                             bundle.aux, cfg.seed)
+                                             bundle.aux, cfg.seed,
+                                             bundle.variant)
                 logging.info("steps_per_call %d: a call replays the step "
-                             "captured in a CUDA graph %d times", self.multi,
-                             self.multi)
+                             "captured in a CUDA graph %d times%s",
+                             self.multi, self.multi,
+                             "" if bundle.variant is None else
+                             " (a graph for each variant of the step)")
             else:
                 logging.info("steps_per_call %d: the steps of a call run "
                              "uncaptured: %s", self.multi, self.uncaptured)
@@ -158,7 +162,7 @@ class Trainer:
         if self.mesh.world_size > 1:
             return ("a process group's collectives run in the step, each a "
                     "host round trip")
-        return self.bundle.host_decision
+        return None
 
     def _call(self, batches, iter_num: int) -> dict:
         """One step a batch of `batches` from iteration `iter_num` on; the

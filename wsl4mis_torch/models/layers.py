@@ -322,17 +322,23 @@ class Dropout:
                            ).to(x.dtype)
 
 
+def drop_path_keep(rows: int, ndim: int, rate: float, generator, device):
+    """drop_path's draw for a (rows, ...) input of `ndim` dims: (rows, 1,
+    ..., 1) bool, of the global batch, cut to the rank's rows."""
+    shape = (parallel.global_batch(rows),) + (1,) * (ndim - 1)
+    return parallel.local_rows(torch.rand(
+        shape, generator=generator, device=device)) < 1.0 - rate
+
+
 def drop_path(x, rate: float, generator=None, keep=None):
     """Stochastic depth: each sample's residual branch kept with
     probability 1 - rate (and scaled by 1 / (1 - rate)) or zeroed. `keep`
-    (B, 1, ..., 1) bool replaces the draw from `generator` (of the global
-    batch, cut to the rank's rows)."""
+    (B, 1, ..., 1) bool replaces the draw from `generator`
+    (drop_path_keep)."""
     if rate == 0.0:
         return x
     if keep is None:
-        shape = (parallel.global_batch(x.shape[0]),) + (1,) * (x.ndim - 1)
-        keep = parallel.local_rows(torch.rand(
-            shape, generator=generator, device=x.device)) < 1.0 - rate
+        keep = drop_path_keep(x.shape[0], x.ndim, rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device)
                        ).to(x.dtype)

@@ -15,14 +15,35 @@
 * Under a process group the batch is the global one: the moments are
   summed over the ranks (``parallel.global_sums``, one all-reduce a layer),
   so every rank normalises by, and keeps, the same statistics.
+* Inside ``statistics_frozen()`` no layer folds its batch into its running
+  statistics: a checkpointed forward's recompute (ScribbleVC's ``remat``)
+  runs under it, so the statistics take one update a forward, as under
+  flax's ``nn.remat``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
 
 from .. import parallel
+
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def statistics_frozen():
+    """No BN layer updates its running statistics inside, in this thread
+    (the autograd engine recomputes a checkpointed forward in its own)."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
 
 
 class FusedBatchNorm(nn.Module):
@@ -48,7 +69,7 @@ class FusedBatchNorm(nn.Module):
         n = parallel.global_batch(n)  # every rank holds n values
         mean, mean2 = s1 / n, s2 / n
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        if self.update_stats:
+        if self.update_stats and not getattr(_frozen, "on", False):
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -35,6 +35,14 @@ names, so ``utils.params`` maps a flax tree onto them by renaming; the init
 draws as flax's does (kaiming fan-out normal for convs, truncated normal
 0.02 for dense kernels and the cls token, zero biases).
 
+``remat=True`` checkpoints each Conformer stage 2-12 (flax's ``nn.remat``
+of the JAX model): a train-mode forward under autograd keeps only the
+stages' inputs and recomputes each stage's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant). The recompute leaves the BN
+running statistics alone (``norm.statistics_frozen``), and the stage's
+drop-path masks are drawn before it and passed in, in the order the plain
+forward draws them, so the results are bit-equal to ``remat=False``.
+
 The memory is not module state: ``forward`` takes it as a dict of f32
 tensors ``{"hist_conv" (ncls, H', W', C), "hist_tran" (ncls, T, E),
 "initialized" ()}`` (``init_memory``) and, in train mode, updates those
@@ -44,18 +52,22 @@ tensors in place (detached) after using them; the caller keeps the dict
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import parallel
 from ..utils.params import scribblevc_key
+from .norm import statistics_frozen
 from .layers import (
     BatchNorm,
     Conv,
     drop_path,
+    drop_path_keep,
     interp_axis,
     same_pads,
     upsample_nearest,
@@ -166,12 +178,22 @@ class TransBlock(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, generator)
 
-    def forward(self, x, train: bool, generator=None):
+    def draw_keep(self, rows: int, generator, device):
+        """The (attention, MLP) drop-path masks of a train-mode forward of
+        `rows` samples, drawn in the forward's order; None at rate 0."""
+        if self.drop_path_rate == 0.0:
+            return None
+        return tuple(drop_path_keep(rows, 3, self.drop_path_rate, generator,
+                                    device) for _ in range(2))
+
+    def forward(self, x, train: bool, generator=None, keep=None):
+        """`keep`: draw_keep's masks in place of the draws."""
         rate = self.drop_path_rate if train else 0.0
+        keep_attn, keep_mlp = (None, None) if keep is None else keep
         y = self.attn(self.norm0(x).to(self.dtype))
-        x = x + drop_path(y, rate, generator)
+        x = x + drop_path(y, rate, generator, keep_attn)
         y = self.mlp(self.norm1(x).to(self.dtype))
-        return x + drop_path(y, rate, generator)
+        return x + drop_path(y, rate, generator, keep_mlp)
 
 
 class BottleneckConvBlock(nn.Module):
@@ -274,11 +296,11 @@ class ConvTransBlock(nn.Module):
         self.fusion_block = BottleneckConvBlock(outplanes, outplanes, 1,
                                                 last_fusion, dtype, generator)
 
-    def forward(self, x, x_t, train: bool, generator=None):
+    def forward(self, x, x_t, train: bool, generator=None, keep=None):
         x, x2 = self.cnn_block(x, train=train)
         hw = (x2.shape[1] // self.dw_stride, x2.shape[2] // self.dw_stride)
         x_st = self.fcu_down(x2, x_t)
-        x_t = self.trans_block(x_st + x_t, train, generator)
+        x_t = self.trans_block(x_st + x_t, train, generator, keep)
         x_t_r = self.fcu_up(x_t, hw, train)
         x = self.fusion_block(x, x_t_r, train=train, return_x2=False)
         return x, x_t
@@ -375,11 +397,18 @@ def _ceil_half(n: int) -> int:
     return -(-n // 2)
 
 
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute keeps no
+    BN statistics."""
+    return contextlib.nullcontext(), statistics_frozen()
+
+
 class ScribbleVC(nn.Module):
     """The ACDC ScribbleVC net. ``patch_size`` is the transformer's patch
     (16: a 4x4 patch embedding on the stem's quarter-size map); the input is
     (B, H, W, 1). ``batch_size``: the train batch at which the memory is
-    updated (None: never), the global batch under a process group."""
+    updated (None: never), the global batch under a process group.
+    ``remat``: checkpoint stages 2-12 (the module docstring)."""
 
     flax_key = staticmethod(scribblevc_key)  # the flax tree's renaming
 
@@ -388,9 +417,10 @@ class ScribbleVC(nn.Module):
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  patch_size: int = 16, drop_path_rate: float = 0.1,
                  hist_weight: float = 0.5, dtype=torch.bfloat16,
-                 in_ch: int = 1, generator=None):
+                 in_ch: int = 1, generator=None, remat: bool = False):
         super().__init__()
         g = generator
+        self.remat = remat
         self.num_classes = num_classes
         self.batch_size = batch_size
         self.embed_dim = embed_dim
@@ -490,8 +520,17 @@ class ScribbleVC(nn.Module):
         t = torch.cat([self.cls_token.to(dt).expand(b, 1, e),
                        t.reshape(b, gh * gw, e)], dim=1)
         t = self.trans_1(t, train, gen)
+        remat = self.remat and train and torch.is_grad_enabled()
         for i in range(2, self.depth + 1):
-            h, t = getattr(self, f"conv_trans_{i}")(h, t, train, gen)
+            stage = getattr(self, f"conv_trans_{i}")
+            if remat:
+                keep = stage.trans_block.draw_keep(b, gen, t.device)
+                h, t = checkpoint(stage, h, t, train, None, keep,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False,
+                                  context_fn=_remat_contexts)
+            else:
+                h, t = stage(h, t, train, gen)
             if i % 4 == 0:
                 feats.append(h)
 
