@@ -210,16 +210,34 @@ failure:
    steps' per_step_counts less at most one step's (a trace can lose the
    first launches after its window opens; phase 10's own windows read
    their launches between two marker kernels, after a padding step).
+11. Host-fed batches (``device_data`` False, ``--device_data 0``) and
+   debug_nans (the device_data line): for each of the 17 methods at its
+   phase-3 cell (s2l and scribblevc from two steps before their gates),
+   two bundles from one state, one staged and one host-fed (each batch's
+   slices copied from pinned memory), 4 eager steps of each and one
+   captured 4-step call of the host-fed one: 0 leaves and 0 metrics
+   differing from the staged eager steps; the host-fed launches
+   per_step_counts a step (a marked trace, padded by staged steps), and
+   ms/step and busy share eager and captured (a marked trace each). The
+   train command, fully_supervised b24, --device_data 0 --steps_per_call
+   4 over 200 steps: captured, its Dice equal to phase 5's and over
+   LEARN_RUNS' bound. Two gloo ranks on cuda:0 with device_data 0 (uamt
+   b12, scribblevc b6, one f32 step; each rank keeps its rows of the
+   host batch, then copies them) held to one process as phase 8 holds
+   them. debug_nans (engine.debug_nans.NanCheck) on fs b24: 4 checked
+   steps bit-equal to 4 plain ones, the ms/step of each; a NaN in one
+   input pixel raises FloatingPointError naming a module of the model,
+   leaving the state as it was.
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
 model's ms and checks, the card), the resume line (resume: each layout's
 save and restore seconds, file MB, chunks, step differences, peak GB,
-the card), the data_parallel line, the surface line, the captured line,
-a per-conv table of the batch-24 step's conv launches (conv-table
-lines), the per-kernel JSON line (its launches summed over phases 3 and
-5-10; phase 10's counted by the wrappers: the warm-ups' and the
-captures'), the nvidia-smi line, and
+the card), the data_parallel line, the surface line, the captured
+line, the device_data line, a per-conv table of the batch-24 step's conv
+launches (conv-table lines), the per-kernel JSON line (its launches
+summed over phases 3 and 5-11; phase 10's counted by the wrappers: the
+warm-ups' and the captures'), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}. All records also go to one
 JSON file, build/chip_smoke/chip_smoke.json unless --detail names another.
@@ -984,7 +1002,9 @@ def method_bundle(cfg, data, val):
     scribblevc build theirs with make_bundle (the semi family: data =
     (labeled, unlabeled), the paired stream over the staged [labeled;
     unlabeled]); the others as their build() does (with aug_mode "host",
-    data needs its native slices: zoomed_with_native)."""
+    data needs its native slices: zoomed_with_native). With
+    cfg.device_data False every stream ships its slices (s2l's and
+    scribblevc's their own: data_stream)."""
     from wsl4mis_torch.engine.methods import get_method
     from wsl4mis_torch.engine.methods.common import (
         MethodBundle,
@@ -998,7 +1018,10 @@ def method_bundle(cfg, data, val):
     if cfg.method in SEMI:
         return (mod.make_bundle(cfg, *data, val),
                 lambda: paired_data(cfg, *data)[1])
-    if cfg.method in ("ustm", "s2l", "scribblevc"):
+    if cfg.method in ("s2l", "scribblevc"):
+        return (mod.make_bundle(cfg, data, val),
+                lambda: mod.data_stream(cfg, data))
+    if cfg.method == "ustm":
         bundle = mod.make_bundle(cfg, data, val)
     else:  # dmpls' build names its model; the others train cfg.model
         model, state = make_model_and_state(
@@ -2761,14 +2784,18 @@ def dp_bundle(cell, spec):
     with its memory gate open from the first step, s2l with its
     pseudo-label term open on its zero buffer (as tests/test_sharding.py
     runs it: pseudo labels thresholded off a refreshed buffer flip with its
-    rounding) and a refresh sweep after the last step."""
+    rounding) and a refresh sweep after the last step. spec["flags"]: more
+    TrainConfig fields (device_data False: the batches stay on the host,
+    each rank keeps its rows there and dp_steps copies them, as the
+    Trainer does)."""
     from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.methods.common import DeviceBatches
 
     method, model_name, batch, kind = cell
     hw, seed = spec["hw"], spec["seed"]
-    flags = {}
+    flags = dict(spec.get("flags") or {})
     if method == "s2l":
-        flags = dict(period_iter=spec["steps"], thr_iter=0)
+        flags.update(period_iter=spec["steps"], thr_iter=0)
     cfg = TrainConfig(
         method=method, model=model_name, batch_size=batch,
         labeled_bs=batch // 2, max_iterations=100,
@@ -2779,6 +2806,8 @@ def dp_bundle(cell, spec):
     if method == "scribblevc":
         bundle.state.step = svc_gate_step(len(data), batch)
     it = new_batches()
+    if isinstance(it, DeviceBatches):
+        it = it.host
     return cfg, bundle, [next(it) for _ in range(spec["steps"])]
 
 
@@ -2790,7 +2819,7 @@ def dp_steps(cfg, bundle, batches, dev, before=None, after=None):
     uncounted."""
     from wsl4mis_torch import parallel
 
-    from wsl4mis_torch.engine.methods.common import split_rngs
+    from wsl4mis_torch.engine.methods.common import DeviceBatches, split_rngs
 
     mesh = parallel.current_mesh()
     losses, metrics, calls, step_ms = [], {}, {}, []
@@ -2800,6 +2829,8 @@ def dp_steps(cfg, bundle, batches, dev, before=None, after=None):
             before(t)
         if mesh.world_size > 1:
             batch = parallel.shard_batch(mesh, batch, bundle.batch_parts)
+        if not cfg.device_data:  # the rank's rows of a host batch
+            batch = next(DeviceBatches([batch], dev))
         parallel.calls.clear()
         sync(dev)
         t0 = time.perf_counter()
@@ -3077,9 +3108,10 @@ def dp_rank(rank, spec):
 
 def dp_group(world, cells, dev, out, cards=None, backend="gloo",
              reference=True, keep_states=False, hw=HW, dtype="float32",
-             seed=0, widths=None, steps=DP_STEPS):
+             seed=0, widths=None, steps=DP_STEPS, flags=None):
     """Spawn `world` dp_rank processes (start method spawn) on a file
-    rendezvous in `out`; returns their outputs in rank order."""
+    rendezvous in `out`; returns their outputs in rank order. `flags`:
+    more TrainConfig fields of every cell."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3089,6 +3121,7 @@ def dp_group(world, cells, dev, out, cards=None, backend="gloo",
             "cards": cards, "backend": backend, "reference": reference,
             "keep_states": keep_states, "hw": hw, "dtype": dtype,
             "seed": seed, "widths": widths, "steps": steps, "out": out,
+            "flags": flags,
             "init_method": "file://" + os.path.join(out, "rendezvous")}
     mp.start_processes(dp_rank, args=(spec,), nprocs=world,
                        start_method="spawn")
@@ -3854,21 +3887,29 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     return rec
 
 
+def gate_spec(method, batch, n_slices):
+    """Where a run of s2l or scribblevc starts so that its first k = 4
+    steps cross its gate: s2l from two steps before its gate opens (a
+    refresh first, thr_conf 0.04: its pseudo-label term live),
+    scribblevc from two steps before its memory gate opens."""
+    if method == "s2l":
+        return {"start": CAPTURE_S2L_START, "refresh": True,
+                "flags": {"thr_iter": CAPTURE_S2L_START + 2,
+                          "thr_conf": 0.04}}
+    if method == "scribblevc":
+        return {"start": svc_gate_step(n_slices, batch) - 2}
+    return {}
+
+
 def capture_spec(method, batch, seed, n_slices):
     """capture_run's keyword arguments for a method: where its run starts
     and how many calls it takes so that it crosses its variants."""
-    out = {}
+    out = gate_spec(method, batch, n_slices)
     if method in CAPTURE_CUT:
         out.update(timed=CAPTURE_K, traced=1)
     if method == "ustm":
         calls = CAPTURE_USTM_CALLS
         out.update(calls=calls, start=ustm_start(seed, CAPTURE_K * calls))
-    elif method == "s2l":
-        out.update(start=CAPTURE_S2L_START, refresh=True,
-                   flags={"thr_iter": CAPTURE_S2L_START + 2,
-                          "thr_conf": 0.04})
-    elif method == "scribblevc":
-        out["start"] = svc_gate_step(n_slices, batch) - 2
     return out
 
 
@@ -4077,20 +4118,22 @@ def remat_part(seed, svc_data, val, dev="cuda", hw=HW, widths=None):
 
 
 def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
-                steps=CAPTURE_CLI_STEPS, k=CAPTURE_K):
+                steps=CAPTURE_CLI_STEPS, k=CAPTURE_K, extra=(),
+                name="captured_cli"):
     """The train command, fully_supervised b24, with --steps_per_call k
-    --val_every 200 (log_every rounded to a multiple of k): the call
-    captured (the log says so), one validation at 200, the checkpoints,
-    the launches of the warm-up, the capture and the validation, and the
-    val Dice equal to phase 5's eager run of the same argv at step 200
-    (`eager_dice`): the same states, bit for bit."""
+    --val_every 200 (log_every rounded to a multiple of k) and the `extra`
+    flags: the call captured (the log says so), one validation at 200,
+    the checkpoints, the launches of the warm-up, the capture and the
+    validation, and the val Dice equal to phase 5's eager run of the same
+    argv at step 200 (`eager_dice`; None: not compared): the same states,
+    bit for bit."""
     import numpy as np
 
     from wsl4mis_torch.engine.graph import WARMUP_STEPS
 
-    snap = os.path.join(ROOT, "build", "chip_smoke", "captured_cli")
+    snap = os.path.join(ROOT, "build", "chip_smoke", name)
     argv = entry_argv(N, steps, steps, snap, seed, hw) + [
-        "--steps_per_call", str(k), "--device", dev]
+        "--steps_per_call", str(k), "--device", dev, *extra]
     trainer = cli_trainer("train_fully_supervised_2D", argv, data, val)
     cfg = trainer.cfg
     vals, losses, val_s = [], [], []
@@ -4126,7 +4169,8 @@ def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
     loss_vals = [float(v) for v in losses]
     capture_s = (sum(trainer.captured.capture_s.values())
                  if trainer.captured else None)
-    rec = {"steps": steps, "k": k, "val_every": trainer.val_every,
+    rec = {"extra": list(extra), "steps": steps, "k": k,
+           "val_every": trainer.val_every,
            "log_every": trainer.log_every, "vals": vals, "logged": logged,
            "launches": counts, "expected": expected, "losses": loss_vals,
            "eager_dice": eager_dice, "wall_s": wall, "val_s": sum(val_s),
@@ -4135,8 +4179,9 @@ def capture_cli(seed, data, val, eager_dice, dev="cuda", hw=HW,
     expect(trainer.captured is not None and any(
         "captured in a CUDA graph" in line for line in logged),
         f"train command: not captured ({logged})")
-    expect([it for it, _ in vals] == [steps] and vals[0][1] == eager_dice,
-           f"train command: validations {vals}, phase 5's Dice {eager_dice}")
+    expect([it for it, _ in vals] == [steps] and eager_dice in (
+        None, vals[0][1]), f"train command: validations {vals}, phase 5's "
+                           f"Dice {eager_dice}")
     expect(counts == expected, f"train command: launches {counts} != "
                                f"{expected}")
     expect(len(loss_vals) == steps // k and all(np.isfinite(loss_vals)),
@@ -4238,6 +4283,283 @@ def capture_phase(seed, datasets, val, card, eager_dice, dev="cuda", hw=HW):
                 "k", "steps", "trace_mb", "launches")}}
     print("captured " + json.dumps(line), flush=True)
     return out
+
+# ---- phase 11: host-fed batches (--device_data 0) and debug_nans -------------
+
+DD_K = CAPTURE_K  # steps compared a method: eager, and one captured call
+# the two-rank part: a UNet method whose batch has two parts, and
+# scribblevc with its category rows
+DD_DP_CELLS = (("uamt", "unet", SEMI_N, "semi"),
+               ("scribblevc", "scribblevc", SVC_N, "svc"))
+DD_DP_STEPS = 1  # each held to the single process's from the same state
+DD_NAN_STEPS = 4  # fs b24 steps timed with and without debug_nans
+
+
+def device_data_run(method, model_name, batch, data, seed, dev="cuda",
+                    hw=HW, k=DD_K, start=0, flags=None, refresh=False):
+    """One method with host-fed batches: its bundle with device_data True
+    and with False from one state at step `start`, each on its own stream
+    (the same slices); k eager steps of each, and one k-step captured call
+    (engine.graph.CapturedStep; on the card) of the host-fed one, every
+    leaf and metric of each bit-equal to the staged eager steps. On the
+    card the host-fed eager steps run in a profile window (traced_window,
+    padded by staged steps), and the captured call, replayed from the
+    same state, in another: ms/step and busy share of each, and the
+    launches, per_step_counts a step (the trace's of the host-fed steps;
+    the counters' with the two pads)."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.graph import CapturedStep
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    t_run = time.perf_counter()
+    bundles, batches = {}, {}
+    for staged in (True, False):
+        cfg = TrainConfig(
+            method=method, model=model_name, batch_size=batch,
+            labeled_bs=batch // 2, max_iterations=10 ** 4,
+            compute_dtype="bfloat16", seed=seed, device=dev,
+            patch_size=(hw, hw), sup_type=sup_type_of(method),
+            device_data=staged, **(flags or {}))
+        bundle, new_batches = method_bundle(cfg, data, None)
+        it = new_batches()
+        batches[staged] = [next(it) for _ in range(k)]
+        bundles[staged] = bundle
+    st, fed = bundles[True], bundles[False]
+    expect(fed.aux is None and all(
+        "image" in b and "index" not in b or method == "s2l"
+        for b in batches[False]), f"{method}: device_data 0 staged a stack "
+                                  f"or fed index batches")
+    if refresh:
+        st.host_hook(st, st.state, cfg.period_iter)
+    st.state.set_host_counts({key: start for key in st.state.host_counts()})
+    start_leaves = _snapshot(state_leaves(st.state))
+    _restore(fed.state, start_leaves)
+
+    def eager(bundle, bs, n):
+        for i in range(n):
+            m = bundle.step_fn(bundle.state, bs[i % len(bs)],
+                               split_rngs(seed, bundle.state.step, dev),
+                               bundle.aux)
+        return m
+
+    want_metrics = _metrics_leaves(eager(st, batches[True], k))
+    want = _snapshot(state_leaves(st.state))
+    state, got = fed.state, {}
+    per = per_step_counts(model_name, method)
+
+    def fed_eager():
+        got["metrics"] = _metrics_leaves(eager(fed, batches[False], k))
+
+    def pad():  # a staged step: it moves the staged state, compared already
+        eager(st, batches[True], 1)
+
+    def differing(leaves, metrics):
+        bad, worst = leaves_diff(want, leaves)
+        return bad, worst, sorted(key for key, v in want_metrics.items()
+                                  if not torch.equal(v, metrics[key]))
+
+    reset_counts()
+    if dev == "cuda":
+        ev_eager, prof_eager = traced_window(fed_eager, k, pad)
+    else:
+        fed_eager()
+    sync(dev)
+    counts = launch_counts()
+    pads = 2 if dev == "cuda" else 0
+    expected = {key: v * (k + pads) for key, v in per.items()}
+    eager_bad = differing(_snapshot(state_leaves(state)), got["metrics"])
+    rec = {"method": method, "model": model_name, "batch": batch, "k": k,
+           "start": start, "leaves": len(want),
+           "eager_leaves_differing": eager_bad[0],
+           "eager_metrics_differing": eager_bad[2],
+           "launches": counts, "expected": expected}
+    cap_bad = ([], 0.0, [])
+    if dev == "cuda":
+        rec["eager_trace_launches"] = trace_launches(ev_eager)
+        _restore(state, start_leaves)
+        captured = CapturedStep(fed.step_fn, state, None, seed, fed.variant)
+        cap_metrics = _metrics_leaves(captured(batches[False]))
+        sync(dev)
+        cap_bad = differing(_snapshot(state_leaves(state)), cap_metrics)
+        _restore(state, start_leaves)  # the same steps: their graphs exist
+        _, prof_cap = traced_window(lambda: captured(batches[False]), k, pad)
+        rec.update(graphs=len(captured.graphs),
+                   capture_s=sum(captured.capture_s.values()),
+                   eager_ms_per_step=prof_eager["ms_per_step"],
+                   captured_ms_per_step=prof_cap["ms_per_step"],
+                   busy_share_eager=prof_eager["device_busy_share"],
+                   busy_share_captured=prof_cap["device_busy_share"])
+        del captured
+    del st, bundles
+    rec.update(captured_leaves_differing=cap_bad[0],
+               captured_metrics_differing=cap_bad[2],
+               run_s=time.perf_counter() - t_run)
+    print("device-data-run " + json.dumps(rec), flush=True)
+    expect(not eager_bad[0] and not eager_bad[2],
+           f"{method}: {k} host-fed eager steps differ from the staged ones "
+           f"in {eager_bad[0][:8]} (max {eager_bad[1]}) and metrics "
+           f"{eager_bad[2]}")
+    expect(not cap_bad[0] and not cap_bad[2],
+           f"{method}: the host-fed captured call differs from the staged "
+           f"eager steps in {cap_bad[0][:8]} (max {cap_bad[1]}) and "
+           f"metrics {cap_bad[2]}")
+    expect(dev != "cuda" or counts == expected and rec[
+        "eager_trace_launches"] == {key: v * k for key, v in per.items()},
+        f"{method}: launches {counts} != {expected} (the host-fed steps and "
+        f"two staged pads), or the trace's host-fed "
+        f"{rec.get('eager_trace_launches')} not {k} steps' {per}")
+    return rec
+
+
+def debug_nans_part(seed, data, dev="cuda", hw=HW, batch=N,
+                    steps=DD_NAN_STEPS):
+    """fully_supervised (host-fed, bf16) under debug_nans
+    (engine.debug_nans.NanCheck): `steps` checked steps bit-equal to the
+    plain steps from one state, the ms/step of each; then a NaN in one
+    input pixel (the centre, which every augmentation keeps) raises
+    FloatingPointError naming a module of the model, and leaves the state
+    as it was before the step."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.debug_nans import NanCheck
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    cfg = TrainConfig(
+        method="fully_supervised", model="unet", batch_size=batch,
+        max_iterations=10 ** 4, compute_dtype="bfloat16", seed=seed,
+        device=dev, patch_size=(hw, hw), sup_type="label",
+        device_data=False)
+    bundle, new_batches = method_bundle(cfg, data, None)
+    state, step_fn = bundle.state, bundle.step_fn
+    it = new_batches()
+    batches = [next(it) for _ in range(steps)]
+    start = _snapshot(state_leaves(state))
+    check = NanCheck(step_fn, seed, torch.device(dev))
+    step_fn(state, batches[0], split_rngs(seed, 0, dev), None)  # warm-up
+    runs = {}
+    for checked in (False, True):
+        _restore(state, start)
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        for b in batches:
+            if checked:
+                m = check(state, b, None, state.step)
+            else:
+                m = step_fn(state, b, split_rngs(seed, state.step, dev), None)
+        sync(dev)
+        runs[checked] = {"ms": 1e3 * (time.perf_counter() - t0) / steps,
+                         "launches": launch_counts(),
+                         "leaves": _snapshot(state_leaves(state)),
+                         "metrics": _metrics_leaves(m)}
+    bad, worst = leaves_diff(runs[False]["leaves"], runs[True]["leaves"])
+    bad_metrics = sorted(key for key, v in runs[False]["metrics"].items()
+                         if not torch.equal(v, runs[True]["metrics"][key]))
+    _restore(state, start)
+    planted = {**batches[0], "image": batches[0]["image"].clone()}
+    planted["image"][1, hw // 2, hw // 2] = float("nan")
+    message = None
+    t0 = time.perf_counter()
+    try:
+        check(state, planted, None, state.step)
+    except FloatingPointError as e:
+        message = str(e)
+    locate_s = time.perf_counter() - t0
+    after, _ = leaves_diff(start, _snapshot(state_leaves(state)))
+    rec = {"batch": batch, "steps": steps, "leaves_differing": bad,
+           "metrics_differing": bad_metrics,
+           "plain_ms_per_step": runs[False]["ms"],
+           "debug_nans_ms_per_step": runs[True]["ms"],
+           "raised": message, "raise_s": locate_s,
+           "state_changed_by_the_raise": after,
+           "launches": [runs[False]["launches"], runs[True]["launches"]]}
+    print("debug-nans " + json.dumps({k: v for k, v in rec.items()
+                                       if k != "launches"}), flush=True)
+    expect(not bad and not bad_metrics,
+           f"debug_nans: clean steps differ from the plain ones in "
+           f"{bad[:8]} (max {worst}) and metrics {bad_metrics}")
+    expect(message is not None and "the output of module model." in message,
+           f"debug_nans: a NaN input raised {message!r}")
+    expect(not after, f"debug_nans: the raise left the state changed in "
+                      f"{after[:8]}")
+    return rec
+
+
+def device_data_phase(seed, datasets, val, card, eager_dice, dev="cuda",
+                      hw=HW, runs=CAPTURE_RUNS, dp_cells=DD_DP_CELLS,
+                      widths=None, nan_batch=N):
+    """Phase 11: device_data_run for the methods at their phase-3 cells
+    (`runs`: CAPTURE_RUNS), the train command with --device_data 0
+    --steps_per_call 4 (capture_cli: captured, phase 5's Dice bit for bit
+    and its LEARN_RUNS bound), two gloo ranks with device_data 0 against
+    the single process (dp_group, phase 8's tolerances; on the card both
+    on cuda:0), and debug_nans (debug_nans_part); the device_data line."""
+    import torch
+
+    t0 = time.perf_counter()
+    recs = []
+    for method, model_name, batch, key in runs:
+        data = datasets[key]
+        recs.append(device_data_run(method, model_name, batch, data, seed,
+                                    dev, hw, **gate_spec(method, batch,
+                                                         len(data))))
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    runs_s = time.perf_counter() - t0
+    cli_run = None
+    if dev == "cuda":
+        cli_run = capture_cli(seed, datasets["dense"], val, eager_dice, dev,
+                              hw, extra=("--device_data", "0"),
+                              name="device_data_cli")
+        dice = cli_run["vals"][0][1]
+        expect(dice >= LEARN_RUNS[0][4],
+               f"--device_data 0: val Dice {dice} under {LEARN_RUNS[0][4]}")
+    t1 = time.perf_counter()
+    outs = dp_group(2, dp_cells, dev, os.path.join(
+        ROOT, "build", "chip_smoke", "dd_two_ranks"),
+        cards=[0, 0] if dev == "cuda" else None, hw=hw, seed=seed,
+        widths=widths, steps=DD_DP_STEPS, flags={"device_data": False})
+    two = dp_verdict(outs, dp_cells, dev, DD_DP_STEPS)
+    dp_s = time.perf_counter() - t1
+    nans = debug_nans_part(seed, datasets["dense"], dev, hw, nan_batch)
+    out = {"card": card, "runs": recs, "cli": cli_run, "two_ranks": two,
+           "debug_nans": nans, "runs_s": runs_s, "two_ranks_s": dp_s,
+           "phase_s": time.perf_counter() - t0}
+    line = {"card": card, "phase_s": out["phase_s"], "k": DD_K,
+            "runs": [{key: r.get(key) for key in (
+                "method", "batch", "start", "leaves",
+                "eager_leaves_differing", "eager_metrics_differing",
+                "captured_leaves_differing", "captured_metrics_differing",
+                "eager_ms_per_step", "captured_ms_per_step",
+                "busy_share_eager", "busy_share_captured", "run_s")}
+                for r in recs],
+            "cli": cli_run and {key: cli_run[key] for key in (
+                "extra", "steps", "vals", "eager_dice", "ms_per_step",
+                "capture_s", "wall_s")},
+            "two_ranks": {m: {key: r[key] for key in (
+                "batch", "diff", "ms_per_step", "single_ms_per_step",
+                "ranks_bit_equal")} for m, r in two.items()},
+            "debug_nans": {key: nans[key] for key in (
+                "leaves_differing", "metrics_differing", "plain_ms_per_step",
+                "debug_nans_ms_per_step", "raised", "raise_s")},
+            "runs_s": runs_s, "two_ranks_s": dp_s}
+    print("device_data " + json.dumps(line), flush=True)
+    return out
+
+
+def dd_launch_records(dd):
+    """Phase 11's launch counts as records: each method's host-fed eager
+    steps, the train command's, the two-rank part's and debug_nans'."""
+    recs = [{"launches": r["launches"]} for r in dd["runs"]]
+    if dd["cli"] is not None:
+        recs.append({"launches": dd["cli"]["launches"]})
+    recs += [{"launches": d} for r in dd["two_ranks"].values()
+             for d in r["launches"]]
+    return recs + [{"launches": d} for d in dd["debug_nans"]["launches"]]
 
 
 # ---- main --------------------------------------------------------------------
@@ -4683,6 +5005,10 @@ def main(argv=None):
     captured = capture_phase(args.seed, datasets, val, card,
                              entry["runs"][0]["val_dice"][-1])
     phase_s["captured"] = time.perf_counter() - t0 - sum(phase_s.values())
+    device_data = device_data_phase(args.seed, datasets, val, card,
+                                    entry["runs"][0]["val_dice"][-1])
+    phase_s["device_data"] = (time.perf_counter() - t0
+                              - sum(phase_s.values()))
     print("phase-s " + json.dumps(phase_s), flush=True)
 
     counted = runs + entry["runs"] + [entry["host_aug"]] + [
@@ -4692,7 +5018,8 @@ def main(argv=None):
         surface_launch_records(surface)) + captured["runs"] + [
         {"launches": c["launches"]} for c in captured["remat"]["cells"]
         if "launches" in c] + [r for r in captured["remat"]["cli"][
-            "runs"].values()] + [captured["cli"]]
+            "runs"].values()] + [captured["cli"]] + dd_launch_records(
+                device_data)
     launches = {k: sum(r["launches"].get(k, 0) for r in counted)
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
@@ -4708,6 +5035,7 @@ def main(argv=None):
               "conv_table": table, "checks": recs,
               "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
               "data_parallel": dp, "surface": surface, "captured": captured,
+              "device_data": device_data,
               "reference": ref, "svc_reference": svc_ref,
               "kernels": kernels}
     os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)

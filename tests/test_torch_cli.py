@@ -82,7 +82,7 @@ EVERY_FLAG = [
     "--snapshot_root", "snap", "--resume", "--data_limit", "21",
     "--aug_mode", "host", "--encoder_weights", "enc.msgpack",
     "--num_devices", "3", "--steps_per_call", "5", "--profile_steps", "2",
-    "--remat", "1"]
+    "--remat", "1", "--device_data", "0"]
 
 
 def _shared_fields(port_cfg, jax_cfg):
@@ -113,16 +113,23 @@ def test_config_from_args_matches_the_jax_cli(name, argv):
 
 
 def test_the_parser_keeps_no_tpu_flag():
-    """The TPU-only flags are refused; --steps_per_call, --profile_steps and
-    --remat (ported) parse to the JAX defaults."""
+    """The TPU-only --fast_prng is refused; --device_data, --steps_per_call,
+    --profile_steps and --remat (ported) parse to the JAX defaults, and a
+    JAX argv with --device_data 0 gives both configs the same shared
+    fields."""
     parser = cli.build_parser({})
-    for flag in ("--device_data", "--fast_prng"):
-        with pytest.raises(SystemExit):
-            parser.parse_args([flag, "1"])
-    jax_defaults = jcli.build_parser({}).parse_args([])
-    for name in ("steps_per_call", "profile_steps", "remat"):
+    with pytest.raises(SystemExit):
+        parser.parse_args(["--fast_prng", "1"])
+    jax_parser = jcli.build_parser({})
+    jax_defaults = jax_parser.parse_args([])
+    for name in ("device_data", "steps_per_call", "profile_steps", "remat"):
         assert getattr(parser.parse_args([]), name) == \
             getattr(jax_defaults, name)
+    argv = ["--device_data", "0", "--batch_size", "8"]
+    port = cli.config_from_args(parser.parse_args(argv), "pce")
+    ref = jcli.config_from_args(jax_parser.parse_args(argv), "pce")
+    got, want = _shared_fields(port, ref)
+    assert got == want and got["device_data"] is False
     assert parser.parse_args([]).device == "cuda"
     assert parser.parse_args([]).encoder_weights is None
     assert parser.parse_args([]).num_devices is None
@@ -276,7 +283,8 @@ def test_train_and_test_commands_end_to_end(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv", [
     ["--suite", "wss", "--folds", "all"], ["--suite", "semi"],
     ["--methods", "dmpls,pce,scribblevc", "--folds", "fold2,fold4",
-     "--extra", "--max_iterations 5"], []])
+     "--extra", "--max_iterations 5"],
+    ["--suite", "semi", "--extra", "--device_data 0"], []])
 def test_launch_dry_run_lists_the_jax_scripts_jobs(argv, capsys):
     """`launch --dry_run` prints the (method, fold) jobs of
     scripts/launch_experiments.py --dry_run in its order, each the port's

@@ -27,7 +27,8 @@ fold-matrix table of the train logs; host only). Every command that runs
 a model runs on the card unless given ``--device cpu``. ``train
 --num_devices N`` trains data-parallel in N processes, one a card
 (``parallel``; None: every visible card; with ``--device cpu``, N gloo
-processes).
+processes). ``train --device_data 0`` ships each step's slices from the
+host in place of index batches into a stack staged on the card.
 """
 
 from __future__ import annotations
@@ -138,8 +139,8 @@ METHOD_DEFAULTS = {
 
 def build_parser(defaults: dict) -> argparse.ArgumentParser:
     """The train scripts' flags (wsl4mis_tpu/cli.py:20-74, the reference's
-    names) with `defaults`, less the TPU-only --device_data and
-    --fast_prng, plus --device."""
+    names) with `defaults`, less the TPU-only --fast_prng, plus
+    --device."""
     p = argparse.ArgumentParser()
     add = p.add_argument
     add("--root_path", type=str, default=defaults.get("root_path"),
@@ -183,6 +184,9 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
     add("--aug_mode", type=str, default="device", choices=["device", "host"],
         help="device: in-step augmentation; host: exact reference "
              "augment-then-zoom semantics on the host")
+    add("--device_data", type=int, default=1,
+        help="1: stage the dataset in device HBM (index batches); 0: ship "
+             "host image batches per step")
     add("--remat", type=int, default=0,
         help="1: checkpoint ScribbleVC's Conformer stages (memory for a "
              "forward of them)")
@@ -232,6 +236,7 @@ def config_from_args(args, method: str) -> TrainConfig:
         profile_steps=args.profile_steps,
         data_limit=args.data_limit,
         aug_mode=args.aug_mode,
+        device_data=bool(args.device_data),
         remat=bool(args.remat),
         device=args.device,
         num_devices=args.num_devices,

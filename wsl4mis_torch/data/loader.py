@@ -54,18 +54,25 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0,
 
 
 def paired_iterator(labeled, unlabeled, labeled_bs: int, unlabeled_bs: int,
-                    seed: int = 0) -> Iterator[dict]:
+                    seed: int = 0, images: bool = False) -> Iterator[dict]:
     """Semi-supervised index batches {"index": (labeled_bs + unlabeled_bs,)
     int32} into the stack [labeled; unlabeled] (unlabeled indices offset by
     len(labeled)), in the order of the JAX package's paired_iterator, which
     ships the images: labeled first, the labeled stream cycling and the
-    epoch keyed to the unlabeled one (train_mean_teacher_2D.py:106-138)."""
+    epoch keyed to the unlabeled one (train_mean_teacher_2D.py:106-138).
+    With `images`, those slices themselves, {"image", "label"}, as the JAX
+    iterator yields them (less its "labeled_bs", which a bundle's
+    batch_parts carry)."""
     lab_it = batch_iterator(labeled, labeled_bs, seed=seed,
                             include_index=True)
     unlab_it = batch_iterator(unlabeled, unlabeled_bs, seed=seed + 1,
                               include_index=True)
     offset = len(labeled)
     while True:
-        lab, unlab = next(lab_it)["index"], next(unlab_it)["index"]
-        yield {"index": np.concatenate([lab, unlab + offset]).astype(
-            np.int32)}
+        lab, unlab = next(lab_it), next(unlab_it)
+        if images:
+            yield {k: np.concatenate([lab[k], unlab[k]])
+                   for k in ("image", "label")}
+        else:
+            yield {"index": np.concatenate(
+                [lab["index"], unlab["index"] + offset]).astype(np.int32)}

@@ -13,9 +13,16 @@ draws (``split_rngs``), so a K-step run is bit-equal to the K = 1 run on
 the same device, and a resumed run still draws what an uninterrupted one
 would. ``profile_steps`` writes a torch.profiler trace of the steps from
 iteration 10 to 10 + N. ``remat`` checkpoints ScribbleVC's Conformer
-stages (less memory for one more forward of them, the same results). Not
-ported: the TPU-only knobs fast_prng (a JAX PRNG stream), device_data (the
-port always stages the dataset) and debug_nans."""
+stages (less memory for one more forward of them, the same results).
+``device_data`` False ships each step's slices from the host (copied from
+pinned memory in the Trainer's prefetch thread) in place of index batches
+into a stack staged on the device; the augmentation still runs on the
+device, and the steps are the same. ``debug_nans`` is the counterpart of
+``jax_debug_nans``: each step's outputs are checked for NaN, and a step
+that made one is run again to find the first module or backward node that
+produced it, then the run raises FloatingPointError
+(``engine.debug_nans``). Not ported: the TPU-only fast_prng (a JAX PRNG
+stream)."""
 
 from __future__ import annotations
 
@@ -77,6 +84,12 @@ class TrainConfig:
                                         # encoder file (convert_torch_weights)
     aug_mode: str = "device"            # "device": augment inside the step;
                                         # "host": batches arrive augmented
+    device_data: bool = True            # stage the slices on the device
+                                        # (index batches); False: ship
+                                        # each batch's slices from the host
+    debug_nans: bool = False            # check every step for NaN and
+                                        # raise FloatingPointError naming
+                                        # where it first appeared
     device: str = "cuda"                # "cuda" or "cpu"; cuda never falls
                                         # back to the CPU
     num_devices: int | None = None      # processes of a data-parallel run,

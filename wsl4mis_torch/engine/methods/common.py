@@ -35,10 +35,12 @@ class MethodBundle:
     model: torch.nn.Module          # the model trained and validated
     state: TrainState
     step_fn: Callable               # (state, batch, rngs, aux) -> metrics
-    data_iter: Iterator[dict]       # host batches ({"index"} when staged)
+    data_iter: Iterator[dict]       # {"index"} batches into the staged
+                                    # aux, or DeviceBatches of slices
     val_volumes: Any                # iterable of {"image", "label"} volumes
     steps_per_epoch: int
     aux: Any = None                 # the dataset staged on the device
+                                    # (None with cfg.device_data False)
     host_hook: Callable | None = None  # (bundle, state, iter_num), run
                                        # after each iteration; updates
                                        # the state in place
@@ -124,11 +126,18 @@ def standard_data(cfg: TrainConfig):
 
 def train_batches(cfg: TrainConfig, train) -> Iterator[dict]:
     """The step's batches over `train`: {"index"} batches into the slices
-    staged on the device, or with aug_mode "host" {"image", "label"}
-    batches augmented on the host and copied to the device."""
+    staged on the device; with aug_mode "host" {"image", "label"} batches
+    augmented on the host; with device_data False the slices themselves,
+    {"image", "label"}, which the step augments. Both of the latter are
+    DeviceBatches (copied to the device), and every stream draws the same
+    slices in the same order from cfg.seed."""
     if cfg.aug_mode == "host":
-        return device_batches(_host_augmented_iterator(cfg, train),
-                              resolve_device(cfg.device))
+        return DeviceBatches(_host_augmented_iterator(cfg, train),
+                             resolve_device(cfg.device))
+    if not cfg.device_data:
+        return DeviceBatches(batch_iterator(train, cfg.batch_size,
+                                            seed=cfg.seed),
+                             resolve_device(cfg.device))
     return index_batches(cfg, train)
 
 
@@ -152,20 +161,32 @@ def _host_augmented_iterator(cfg: TrainConfig, train) -> Iterator[dict]:
                "label": np.stack([o["label"] for o in out])}
 
 
-def device_batches(batches: Iterator[dict], device) -> Iterator[dict]:
-    """Each numpy batch as tensors on `device`; on the card an asynchronous
-    copy from pinned memory. The Trainer runs its stream in the prefetch
-    thread, so the step neither waits for the copy nor spends host time
-    on it, and the default stream, which both threads use, orders the copy
-    before the step that reads the batch."""
-    for batch in batches:
+class DeviceBatches:
+    """Each numpy batch of `host` as tensors on `device`; on the card an
+    asynchronous copy from pinned memory. The Trainer runs the stream in
+    its prefetch thread, so the step neither waits for the copy nor spends
+    host time on it, and the default stream, which both threads use,
+    orders the copy before the step that reads the batch. ``map_host(fn)``
+    is the same stream over fn of each host batch: under a process group
+    the Trainer keeps the rank's rows there, before the copy."""
+
+    def __init__(self, host: Iterator[dict], device):
+        self.host, self.device = iter(host), torch.device(device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
         out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(v)
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+        for k, v in next(self.host).items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
-        yield out
+        return out
+
+    def map_host(self, fn: Callable[[dict], dict]) -> "DeviceBatches":
+        return DeviceBatches(map(fn, self.host), self.device)
 
 
 def resolve_labeled_bs(cfg: TrainConfig) -> int:
@@ -200,18 +221,26 @@ def semi_datasets(cfg: TrainConfig):
 def paired_data(cfg: TrainConfig, labeled, unlabeled):
     """(the stack [labeled; unlabeled] to stage, its paired index-batch
     stream, steps per epoch: the unlabeled slices over the unlabeled
-    batch)."""
+    batch). With cfg.device_data False: no stack (None), and the stream
+    ships the batches' slices, [labeled rows; unlabeled rows], as
+    DeviceBatches."""
     labeled_bs, unlabeled_bs = semi_parts(cfg)
+    spe = len(unlabeled) // unlabeled_bs
+    it = paired_iterator(labeled, unlabeled, labeled_bs, unlabeled_bs,
+                         seed=cfg.seed, images=not cfg.device_data)
+    if not cfg.device_data:
+        return None, DeviceBatches(it, resolve_device(cfg.device)), spe
     stack = ArraySliceDataset(
         np.concatenate([labeled.images, unlabeled.images]),
         np.concatenate([labeled.labels, unlabeled.labels]))
-    it = paired_iterator(labeled, unlabeled, labeled_bs, unlabeled_bs,
-                         seed=cfg.seed)
-    return stack, it, len(unlabeled) // unlabeled_bs
+    return stack, it, spe
 
 
-def stage_dataset(cfg: TrainConfig, train) -> dict:
-    """The slice stack on the device: images f32, labels uint8."""
+def stage_dataset(cfg: TrainConfig, train) -> dict | None:
+    """The slice stack on the device: images f32, labels uint8; None with
+    cfg.device_data False (the batches bring their slices)."""
+    if not cfg.device_data:
+        return None
     device = resolve_device(cfg.device)
     return {
         "images": torch.from_numpy(np.ascontiguousarray(train.images,
@@ -225,10 +254,10 @@ def prep_batch(generator, batch, staged=None, augment: bool = True,
     """Gather (from the staged dataset) + augmentation + NHWC expansion.
 
     batch is {"index"} over `staged`, or {"image", "label"} tensors already
-    on the device (augment=False when they arrive augmented:
-    train_batches with aug_mode "host"); `labeled`: the batch is [labeled
-    rows; the rest] (the semi family's parts, each sharded on its own, so
-    the rank draws its rows of each part's policy). Returns
+    on the device (device_data False; augment=False when they arrive
+    augmented: train_batches with aug_mode "host"); `labeled`: the batch
+    is [labeled rows; the rest] (the semi family's parts, each sharded on
+    its own, so the rank draws its rows of each part's policy). Returns
     (x (B,H,W,1) f32, labels (B,H,W) int32)."""
     if staged is not None and "index" in batch:
         idx = torch.as_tensor(batch["index"]).to(staged["images"].device,

@@ -12,7 +12,12 @@ device: each step gathers its batch's rows and co-augments them with the
 image and the scribble in one augment kernel (``data.augment_device.
 augment_batch_s2l``, every map filled with 0); every period_iter
 iterations the Trainer's host hook re-infers the whole train stack in eval
-mode and sets w <- alpha * softmax(logits) + (1 - alpha) * w.
+mode and sets w <- alpha * softmax(logits) + (1 - alpha) * w. The images
+and scribbles come from the stack staged on the device, or with
+cfg.device_data False from the batch ({"image", "label", "index"}, as the
+JAX step always takes them; the index still picks the buffer's rows), and
+the refresh then keeps an image stack of its own on the device, as the
+JAX package's make_refresh does.
 
 The gate is a Python comparison of the host step count, so it waits for
 nothing on the device; the pseudo-label term's metric is computed either
@@ -25,13 +30,16 @@ it where it lies.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...data import AcdcSliceDataset, AcdcVolumeDataset
+from ...data import AcdcSliceDataset, AcdcVolumeDataset, batch_iterator
 from ...data.augment_device import augment_batch_s2l
 from ...ops import losses
+from ...utils.device import resolve_device
 from ..config import TrainConfig
 from .common import (
+    DeviceBatches,
     MethodBundle,
     index_batches,
     make_model_and_state,
@@ -62,13 +70,17 @@ def make_step(cfg: TrainConfig):
     variant = make_variant(cfg)
 
     def step_fn(state, batch, rngs, aux=None, gate=None):
-        """batch {"index"} over the staged stack `aux`; `gate`: the
-        pseudo-label term's (None: state.step >= thr_iter)."""
-        idx = torch.as_tensor(batch["index"]).to(aux["images"].device,
-                                                 torch.int64)
-        images = aux["images"].index_select(0, idx)
-        scribbles = aux["labels"].index_select(0, idx).to(torch.int32)
-        weights = state.extra["weight"].index_select(0, idx)
+        """batch {"index"} over the staged stack `aux`, or {"image",
+        "label", "index"} tensors (aux None); `gate`: the pseudo-label
+        term's (None: state.step >= thr_iter)."""
+        weight = state.extra["weight"]
+        idx = torch.as_tensor(batch["index"]).to(weight.device, torch.int64)
+        if aux is not None:
+            images = aux["images"].index_select(0, idx)
+            scribbles = aux["labels"].index_select(0, idx).to(torch.int32)
+        else:
+            images, scribbles = batch["image"], batch["label"]
+        weights = weight.index_select(0, idx)
         images, scribbles, weights = augment_batch_s2l(
             rngs["aug"], images, scribbles, weights)
         x = images[..., None]
@@ -91,8 +103,9 @@ def make_step(cfg: TrainConfig):
     return step_fn
 
 
-def make_refresh(cfg: TrainConfig, images: torch.Tensor):
-    """The full-dataset EMA sweep over the staged (N, H, W) image stack:
+def make_refresh(cfg: TrainConfig, images):
+    """The full-dataset EMA sweep over the (N, H, W) image stack, staged
+    on the device (a numpy stack is put there at the first sweep):
     refresh(state) runs the model in eval mode on chunks of REFRESH_BS
     slices (the last one zero-padded, so every forward has one shape) and
     updates state.extra["weight"] chunk by chunk, in place, as
@@ -104,7 +117,11 @@ def make_refresh(cfg: TrainConfig, images: torch.Tensor):
 
     @torch.no_grad()
     def refresh(state):
+        nonlocal images
         weight = state.extra["weight"]
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.ascontiguousarray(
+                images, np.float32)).to(weight.device)
         for start in range(0, n, REFRESH_BS):
             x = images[start:start + REFRESH_BS]
             rows = x.shape[0]
@@ -119,15 +136,27 @@ def make_refresh(cfg: TrainConfig, images: torch.Tensor):
     return refresh
 
 
+def data_stream(cfg: TrainConfig, train):
+    """The step's batches: {"index"} into the staged stack, or with
+    cfg.device_data False {"image", "label", "index"} (DeviceBatches)."""
+    if cfg.device_data:
+        return index_batches(cfg, train)
+    it = batch_iterator(train, cfg.batch_size, seed=cfg.seed,
+                        include_index=True)
+    return DeviceBatches(({**b, "index": b["index"].astype(np.int32)}
+                          for b in it), resolve_device(cfg.device))
+
+
 def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
-    """The method on a given scribble slice dataset, staged on the device,
-    with a zero weight buffer and the refresh as the host hook."""
+    """The method on a given scribble slice dataset (staged on the device
+    unless cfg.device_data is False), with a zero weight buffer and the
+    refresh as the host hook."""
     model, state = make_model_and_state(cfg)
     aux = stage_dataset(cfg, train)
-    images = aux["images"]
+    images = train.images if aux is None else aux["images"]
     state.extra = {"weight": torch.zeros((*images.shape, 4),
                                          dtype=torch.float32,
-                                         device=images.device)}
+                                         device=state.device)}
     refresh = make_refresh(cfg, images)
 
     def host_hook(bundle, state, iter_num):
@@ -135,7 +164,7 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
             refresh(state)
 
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),
-                        aux=aux, data_iter=index_batches(cfg, train),
+                        aux=aux, data_iter=data_stream(cfg, train),
                         val_volumes=val,
                         steps_per_epoch=len(train) // cfg.batch_size,
                         host_hook=host_hook, variant=make_variant(cfg))

@@ -14,7 +14,9 @@ with beta ~ U(0, 1) + 1e-10 from rngs["method"] (a caller may pass
 `beta`), drop-path from rngs["dropout"], the augmentation (K4) from
 rngs["aug"], AdamW(5e-4, wd 5e-4) at a constant rate. ``category`` is the
 per-slice class-presence table (``slice_categories`` of the dense labels),
-staged with the slices and gathered by index.
+staged with the slices and gathered by index; with cfg.device_data False
+each batch ships its slices and their rows of the table, {"image",
+"label", "category"}, as the JAX build's stream does.
 
 The class memory (``state.extra["class_memory"]``) joins the forward from
 epoch 5 (``state.step // steps_per_epoch > 4``, the reference's ``epoch >
@@ -41,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import parallel
-from ...data import AcdcSliceDataset, AcdcVolumeDataset
+from ...data import AcdcSliceDataset, AcdcVolumeDataset, batch_iterator
 from ...eval.val2d import VolumePredictor
 from ...models import net_factory
 from ...ops import losses
@@ -51,6 +53,7 @@ from ..config import TrainConfig
 from ..optim import ReferenceAdamW
 from ..state import TrainState
 from .common import (
+    DeviceBatches,
     MethodBundle,
     compute_dtype,
     index_batches,
@@ -171,6 +174,23 @@ def make_step(cfg: TrainConfig, steps_per_epoch: int):
     return step_fn
 
 
+def data_stream(cfg: TrainConfig, train):
+    """The step's batches: {"index"} into the staged slices, or with
+    cfg.device_data False {"image", "label", "category"} (DeviceBatches),
+    the rows of ``slice_categories`` beside each batch's slices."""
+    if cfg.device_data:
+        return index_batches(cfg, train)
+    category = slice_categories(train.dense_labels, cfg.num_classes)
+
+    def with_category():
+        for b in batch_iterator(train, cfg.batch_size, seed=cfg.seed,
+                                include_index=True):
+            b["category"] = category[b.pop("index")]
+            yield b
+
+    return DeviceBatches(with_category(), resolve_device(cfg.device))
+
+
 def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
     """The method on a slice dataset with dense_labels (their class table
     staged beside the images and labels) and its val volumes, with a
@@ -185,8 +205,9 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
                        extra={"class_memory": model.init_memory(
                            cfg.patch_size, device)})
     aux = stage_dataset(cfg, train)
-    aux["category"] = torch.from_numpy(
-        slice_categories(train.dense_labels, cfg.num_classes)).to(device)
+    if aux is not None:
+        aux["category"] = torch.from_numpy(
+            slice_categories(train.dense_labels, cfg.num_classes)).to(device)
     steps_per_epoch = max(len(train) // cfg.batch_size, 1)
 
     def predictor(decision_fn, use_class_rep):
@@ -201,7 +222,7 @@ def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
     return MethodBundle(
         model=model, state=state,
         step_fn=make_step(cfg, steps_per_epoch), aux=aux,
-        data_iter=index_batches(cfg, train), val_volumes=val,
+        data_iter=data_stream(cfg, train), val_volumes=val,
         steps_per_epoch=steps_per_epoch,
         variant=make_variant(steps_per_epoch),
         predictor=predictor(cam_decision, True),

@@ -101,7 +101,8 @@ def make_step(cfg: TrainConfig):
 
 def make_bundle(cfg: TrainConfig, train, val) -> MethodBundle:
     """The method on a given slice dataset, staged on the device (with
-    aug_mode "host" its batches come augmented from the host)."""
+    aug_mode "host" its batches come augmented from the host, with
+    device_data False as they are)."""
     model, state = make_model_and_state(cfg)
     state.extra = {"ema_params": ema_copy(model)}
     return MethodBundle(model=model, state=state, step_fn=make_step(cfg),

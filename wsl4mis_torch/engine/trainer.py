@@ -41,11 +41,18 @@ data iterator started anew, as the JAX trainer does. A JAX run continued
 here takes the port's draws from the resumed step on: JAX's PRNG streams
 have no torch counterpart.
 
+``cfg.debug_nans`` checks every step for a NaN and raises
+FloatingPointError where one first appears (``engine.debug_nans.NanCheck``:
+one reduction and one sync a step, and a copy of the state before it); a
+K-step call then runs its steps eagerly, and the Trainer logs why.
+
 Under a process group (``parallel.make_mesh``; the counterpart of the JAX
 trainer's mesh) the state is replicated from rank 0, each rank runs the
 same global batch stream and keeps its rows of each batch
-(``parallel.shard_batch``, part by part with ``bundle.batch_parts``), and
-the step equals the single-process step at the global batch. Rank 0 alone
+(``parallel.shard_batch``, part by part with ``bundle.batch_parts``; of a
+stream of host batches, ``DeviceBatches``, on the host before the copy, as
+the JAX trainer shards host arrays), and the step equals the
+single-process step at the global batch. Rank 0 alone
 writes the snapshot dir (code, log.txt, TensorBoard, checkpoints) and
 validates; the other ranks wait at a barrier. Every rank restores the same
 file on ``--resume`` and runs the host hook.
@@ -71,8 +78,9 @@ from ..utils.checkpoint import (
 from ..utils.device import resolve_device
 from ..utils.logging_utils import Timer, setup_run_logging
 from .config import TrainConfig
+from .debug_nans import NanCheck
 from .graph import CapturedStep
-from .methods.common import MethodBundle, split_rngs
+from .methods.common import DeviceBatches, MethodBundle, split_rngs
 
 
 class Trainer:
@@ -116,9 +124,16 @@ class Trainer:
         batches = bundle.data_iter
         if self.mesh.world_size > 1:
             parallel.replicate_tree(self.state.state_dict())
-            batches = (parallel.shard_batch(self.mesh, b, bundle.batch_parts)
-                       for b in batches)
+
+            def shard(b):
+                return parallel.shard_batch(self.mesh, b, bundle.batch_parts)
+
+            batches = (batches.map_host(shard)
+                       if isinstance(batches, DeviceBatches)
+                       else map(shard, batches))
         self.data_iter = prefetch(batches, size=4 * self.multi)
+        self.nan_check = (NanCheck(bundle.step_fn, cfg.seed, self.device)
+                          if cfg.debug_nans else None)
         self.captured, self.uncaptured = None, None
         if self.multi > 1:
             self.uncaptured = self._uncaptured_reason()
@@ -162,6 +177,9 @@ class Trainer:
         if self.mesh.world_size > 1:
             return ("a process group's collectives run in the step, each a "
                     "host round trip")
+        if self.cfg.debug_nans:
+            return ("debug_nans checks each step's outputs on the host and "
+                    "runs a step that made a NaN again, eagerly")
         return None
 
     def _call(self, batches, iter_num: int) -> dict:
@@ -170,9 +188,13 @@ class Trainer:
         if self.captured is not None:
             return self.captured(batches)
         for k, batch in enumerate(batches):
-            rngs = split_rngs(self.cfg.seed, iter_num + k, self.device)
-            metrics = self.bundle.step_fn(self.state, batch, rngs,
-                                          self.bundle.aux)
+            if self.nan_check is not None:
+                metrics = self.nan_check(self.state, batch, self.bundle.aux,
+                                         iter_num + k)
+            else:
+                rngs = split_rngs(self.cfg.seed, iter_num + k, self.device)
+                metrics = self.bundle.step_fn(self.state, batch, rngs,
+                                              self.bundle.aux)
         return metrics
 
     def _start_profile(self):
