@@ -9,9 +9,10 @@ failure:
 
 1. The card (nvidia-smi name and power limit), and the build of every
    kernel from ``wsl4mis_torch/csrc`` (timed). ptxas must report no spill
-   in any conv, augment or GatedCRF kernel, and every bf16 conv kernel's
-   SASS (cuobjdump) must hold tensor-core instructions (HMMA / HGMMA;
-   counts printed).
+   in any conv, augment or GatedCRF kernel, every bf16 conv kernel's SASS
+   (cuobjdump) must hold tensor-core instructions (HMMA / HGMMA; counts
+   printed) and every f32 conv kernel's none (exact f32 on the CUDA
+   cores).
 2. Kernels: each kernel of the training paths against its plain
    PyTorch version on the card, at the paths' shapes (every UNet 3x3 conv
    at 256x256, in bf16 and f32: forward, forward + moments, input
@@ -33,20 +34,24 @@ failure:
    paths, the conv
    also runs in all four roles at the ragged shapes of
    tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
-   and every batch-24 bf16 conv launch is repeated and must be bit-equal.
+   and every batch-24 conv launch (bf16 and f32) is repeated and must be
+   bit-equal.
    The host time of one call of each conv and pool wrapper, the augment
    wrapper at batch 24, its S2L variant at 12 and the GatedCRF wrapper at
    batch 6 is recorded (wrapper_host_us), and one call of each runs under
    torch.cuda.set_sync_debug_mode("error"): a host-device sync fails the
-   run. The batch-24 bf16 launches (GatedCRF: batch 6, its
-   training batch, and 24; f32; the S2L augment: batch 12) are timed:
+   run. The batch-24 launches (the convs in bf16 and in f32, the pool in
+   bf16; GatedCRF: batch 6, its training batch, and 24; f32; the S2L
+   augment: batch 12) are timed:
    CUDA-event medians of 12 calls after 3 warm-up calls (the augment and
    GatedCRF calls also in a torch.profiler trace of 10 calls: the
    kernels alone, kernel_ms), for the kernel, its plain version and,
    where one PyTorch call
    computes the same function, that call (library_ms; the S2L augment's
    trace must hold augment_s2l_kernel alone, no fill-flag kernel; cuDNN's
-   conv, F.max_pool2d and its backward on a channels-last view). bound_ms
+   conv, in f32 with TF32 off, F.max_pool2d and its backward on a
+   channels-last view; for the f32 convs also cuDNN under PyTorch's
+   default TF32, library_tf32_ms, a lower precision). bound_ms
    is max(bytes / 3.35 TB/s, flops / peak) with bf16 at 989 TFLOP/s and
    f32 at 67 TFLOP/s (H100 SXM data sheet). Tolerances:
    f32 (TF32 off) 1e-4 of the largest reference magnitude; bf16 outputs 2
@@ -81,7 +86,13 @@ failure:
    device ms are recorded). Then, for the timed runs,
    ms/step and slices/s of each step in a synchronized loop of 10 steps,
    and a torch.profiler trace of the same 10 (device kernel time by name,
-   the device's busy share).
+   the device's busy share). Last, the f32 cell (f32_cell):
+   fully_supervised UNet b24 with compute_dtype float32, the f32 conv
+   kernels' path: 4 eager steps launching per_step_counts a step and one
+   captured 4-step call from the same state, bit-equal; 10 eager steps
+   and the call in marked trace windows: ms/step, device busy ms and
+   share, the conv kernels' traced ms a step beside their bound (the
+   f32-cell line).
 4. Reference: a full-width UNet in f32, batch 2, at 64x64 and at 128x128
    on three seeds: its eval logits and train-mode loss and gradients on
    the card (kernels) against the same model on the CPU (plain
@@ -159,8 +170,10 @@ failure:
    bit the run with no group, its ms/step beside that run's; (c) with more
    than one card, min(4, cards) NCCL ranks, one a card, on
    fully_supervised against the single process, else a line saying it was
-   not run. The data_parallel line holds each case's largest difference a
-   leaf class, ms/step, collectives a step and the phase's seconds.
+   not run. (a)'s group also runs phase 11's two host-fed cells, so that
+   one spawn serves both phases. The data_parallel line holds each case's
+   largest difference a leaf class, ms/step, collectives a step and the
+   phase's seconds.
 9. The rest of the JAX package's public surface (the surface line): (a)
    eval.test_single_volume with phase 5's trained UNet in bf16 over 4
    phantom volumes, each volume's [dice, hd95] equal to evaluate_fold's
@@ -218,24 +231,29 @@ failure:
    captured 4-step call of the host-fed one: 0 leaves and 0 metrics
    differing from the staged eager steps; the host-fed launches
    per_step_counts a step (a marked trace, padded by staged steps), and
-   ms/step and busy share eager and captured (a marked trace each). The
+   ms/step and busy share eager and captured (two marked segments of
+   that trace). The
    train command, fully_supervised b24, --device_data 0 --steps_per_call
    4 over 200 steps: captured, its Dice equal to phase 5's and over
    LEARN_RUNS' bound. Two gloo ranks on cuda:0 with device_data 0 (uamt
    b12, scribblevc b6, one f32 step; each rank keeps its rows of the
    host batch, then copies them) held to one process as phase 8 holds
-   them. debug_nans (engine.debug_nans.NanCheck) on fs b24: 4 checked
-   steps bit-equal to 4 plain ones, the ms/step of each; a NaN in one
-   input pixel raises FloatingPointError naming a module of the model,
-   leaving the state as it was.
+   them (run in phase 8's group, reported here). debug_nans
+   (engine.debug_nans.NanCheck) on fs b24: 4 checked steps bit-equal to
+   4 plain ones, the ms/step of each; a NaN in one input pixel raises
+   FloatingPointError naming a module of the model, leaving the state as
+   it was.
 
 Output: detail lines, the entry points' line (entry-points: steps,
 ms/step, Dice, seconds a part, the card), the zoo line (zoo: each
 model's ms and checks, the card), the resume line (resume: each layout's
 save and restore seconds, file MB, chunks, step differences, peak GB,
 the card), the data_parallel line, the surface line, the captured
-line, the device_data line, a per-conv table of the batch-24 step's conv
-launches (conv-table lines), the per-kernel JSON line (its launches
+line, the device_data line, per-conv tables of the batch-24 step's conv
+launches in bf16 (conv-table lines) and f32 (conv-table-f32), the f32
+launches' sums per role (conv-f32-step), the per-kernel JSON line (the
+conv kernels' f32 instantiations apart, with the f32 cell's launches; its
+launches
 summed over phases 3 and 5-11; phase 10's counted by the wrappers: the
 warm-ups' and the captures'), the nvidia-smi line, and
 last
@@ -280,8 +298,8 @@ SRC_POOL = "wsl4mis_torch/csrc/maxpool.cu"
 PALLAS_POOL = "wsl4mis_tpu/ops/pallas/maxpool_pallas.py"
 GCRF_RADIUS = 5
 # device function names of the port's kernels, as a trace shows them: every
-# __global__ of wsl4mis_torch/csrc (the conv's f32 SIMT kernels and its bf16
-# tensor-core ones apart)
+# __global__ of wsl4mis_torch/csrc (the conv's f32 CUDA-core kernels and its
+# bf16 tensor-core ones apart)
 PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
                 "conv3x3_fwd_mma_kernel", "conv3x3_wgrad_mma_kernel",
                 "augment_fill_kernel", "augment_kernel",
@@ -443,6 +461,40 @@ def expect(ok, what):
 # ---- phase 2: kernels -------------------------------------------------------
 
 
+@contextlib.contextmanager
+def cudnn_tf32(on):
+    """cuDNN's TF32 switch set to `on`, the caller's setting put back
+    after."""
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def library_times(fn_l, dtype_name):
+    """The PyTorch yardstick of a launch: library_ms, cuDNN in the
+    launch's own precision (f32: TF32 off), and for f32 library_tf32_ms,
+    the same call under PyTorch's default TF32 (10 mantissa bits: a lower
+    precision than the kernel's, not an f32 time). None where no one call
+    computes the function."""
+    out = {"library_ms": None}
+    if dtype_name == "float32":
+        out["library_tf32_ms"] = None
+    if fn_l is None:
+        return out
+    with cudnn_tf32(False):
+        out["library_ms"] = time_ms(fn_l)
+    if dtype_name == "float32":
+        with cudnn_tf32(True):
+            out["library_tf32_ms"] = time_ms(fn_l)
+    return out
+
+
+
 def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False,
                dev="cuda", width=None, case=None, repeat=False):
     """Check (and, if timed, time) fwd, fwd_stats and wgrad at one conv
@@ -501,8 +553,9 @@ def check_conv(name, c, o, h, dtype_name, n, timed, eval_only=False,
             ok = ok and rec["repeat_bit_equal"]
         if timed:
             rec["ms"] = time_ms(fn_k)
-            rec["plain_ms"] = time_ms(fn_p)
-            rec["library_ms"] = time_ms(fn_l) if fn_l else None
+            with cudnn_tf32(False):  # the plain f32 version in f32
+                rec["plain_ms"] = time_ms(fn_p)
+            rec.update(library_times(fn_l, dtype_name))
         recs.append(rec)
         print("kernel-check " + json.dumps(rec), flush=True)
         expect(ok, f"{kernel} {name} {dtype_name} {shape}: err {err} {unit}"
@@ -1291,6 +1344,116 @@ def profile_steps(step_fn, state, batches, rngs, aux, top=12):
             "device_busy_share": busy_us / wall_us,
             "top_kernels_ms_per_step": [[name[:80], 1e-3 * us / steps]
                                         for name, us in rows[:top]]}
+
+
+F32_EAGER = 10  # the f32 cell's eager steps in its traced window
+F32_K = 4  # the f32 cell's captured call: steps (phase 10's CAPTURE_K)
+
+
+def conv_trace_ms(events, steps):
+    """Device ms a step of the conv kernels among a trace's device events,
+    by launch counter (TRACE_KERNELS' names: the forward with moments, the
+    forward, the weight gradient) and in all."""
+    out = {k: 0.0 for k in CONV_KERNELS}
+    for name, us in events:
+        for key, pattern in TRACE_KERNELS:
+            if re.search(pattern, name):
+                if key in out:
+                    out[key] += 1e-3 * us / steps
+                break
+    out["all"] = sum(out.values())
+    return out
+
+
+def f32_cell(seed, data, card, bound_ms, dev="cuda", hw=HW, batch=N,
+             steps=F32_EAGER, k=F32_K):
+    """Phase 3's f32 cell: fully_supervised UNet at `batch` with
+    compute_dtype float32, the f32 conv kernels' path. After a warm-up
+    step, from one state: k eager steps, whose launches must be
+    per_step_counts a step, and one k-step call of engine.graph.
+    CapturedStep on the same batches, every leaf and metric bit-equal to
+    them. Then `steps` eager steps and the call as two marked segments of
+    one trace: ms/step, device busy ms and share, and the conv kernels'
+    device ms a step (by role and in all) beside bound_ms, the least time
+    of the step's conv launches; the launches of the whole cell, which the
+    kernels line's f32 entries report. On the CPU (the tests) the eager
+    steps alone."""
+    import torch
+
+    from wsl4mis_torch.engine.config import TrainConfig
+    from wsl4mis_torch.engine.graph import CapturedStep
+    from wsl4mis_torch.engine.methods.common import split_rngs
+
+    t_run = time.perf_counter()
+    cfg = TrainConfig(
+        method="fully_supervised", model="unet", batch_size=batch,
+        max_iterations=10 ** 4, compute_dtype="float32", seed=seed,
+        device=dev, patch_size=(hw, hw), sup_type="label")
+    bundle, new_batches = method_bundle(cfg, data, None)
+    state, step_fn, aux = bundle.state, bundle.step_fn, bundle.aux
+    it = new_batches()
+    batches = [next(it) for _ in range(k)]
+
+    def eager(n):
+        for i in range(n):
+            m = step_fn(state, batches[i % k],
+                        split_rngs(seed, state.step, dev), aux)
+        return m
+
+    reset_counts()
+    eager(1)  # cuDNN's and cuBLAS's first calls
+    start = _snapshot(state_leaves(state))
+    before = launch_counts()
+    want_metrics = _metrics_leaves(eager(k))
+    sync(dev)
+    step_launches = {key: v - before[key]
+                     for key, v in launch_counts().items()}
+    want = _snapshot(state_leaves(state))
+    per = per_step_counts("unet", "fully_supervised")
+    rec = {"card": card, "batch": batch, "k": k, "leaves": len(want),
+           "step_launches": step_launches,
+           "expected_step_launches": {key: v * k for key, v in per.items()},
+           "conv_bound_ms": bound_ms}
+    bad, worst, bad_metrics = [], 0.0, []
+    if dev == "cuda":
+        _restore(state, start)
+        captured = CapturedStep(step_fn, state, aux, seed, bundle.variant)
+        got_metrics = _metrics_leaves(captured(batches))
+        sync(dev)
+        bad, worst = leaves_diff(want, _snapshot(state_leaves(state)))
+        bad_metrics = sorted(key for key, v in want_metrics.items()
+                             if not torch.equal(v, got_metrics[key]))
+        (ev_eager, prof_eager), (ev_cap, prof_cap) = traced_windows(
+            [(None, lambda: eager(steps), steps),
+             (None, lambda: captured(batches), k)], lambda: eager(1))
+        rec.update(
+            eager={**prof_eager, "steps": steps,
+                   "conv_ms_per_step": conv_trace_ms(ev_eager, steps),
+                   "trace_launches": trace_launches(ev_eager)},
+            captured={**prof_cap, "steps": k,
+                      "conv_ms_per_step": conv_trace_ms(ev_cap, k),
+                      "trace_launches": trace_launches(ev_cap)},
+            capture_s=sum(captured.capture_s.values()))
+        del captured
+    rec.update(leaves_differing=bad, max_abs_diff=worst,
+               metrics_differing=bad_metrics, launches=launch_counts(),
+               run_s=time.perf_counter() - t_run)
+    print("f32-cell " + json.dumps(rec), flush=True)
+    expect(step_launches == rec["expected_step_launches"],
+           f"f32 cell: {k} eager steps launched {step_launches}, not "
+           f"{k} x {per}")
+    expect(not bad and not bad_metrics,
+           f"f32 cell: the captured call differs from {k} eager steps in "
+           f"{bad[:8]} (max {worst}) and metrics {bad_metrics}")
+    traced = {part: rec.get(part, {}).get("trace_launches")
+              for part in ("eager", "captured")}
+    expect(dev != "cuda" or (
+        traced["eager"] == {key: v * steps for key, v in per.items()}
+        and traced["captured"] == rec["expected_step_launches"]),
+        f"f32 cell: traced launches {traced['eager']} over {steps} eager "
+        f"steps, {traced['captured']} over the {k}-step call, against "
+        f"{per} a step")
+    return rec
 
 
 # ---- phase 4: reference on a small input ------------------------------------
@@ -2749,6 +2912,25 @@ DP_MOMENT_RTOL = {None: 1e-2, "scribblevc": 3e-2}
 DP_EXACT_METRICS = ("proto_acc_conv", "proto_acc_tran")
 
 
+def cell_opts(cell):
+    """A data-parallel cell's own options, its fifth entry where it has
+    one: "flags" (more TrainConfig fields; device_data False: the batches
+    stay on the host, each rank keeps its rows there and dp_steps copies
+    them, as the Trainer does) and "steps" (else DP_STEPS). They are the
+    only way to give a cell flags or steps of its own."""
+    return cell[4] if len(cell) > 4 else {}
+
+
+def cell_steps(cell):
+    return cell_opts(cell).get("steps", DP_STEPS)
+
+
+def cell_key(cell):
+    """A cell's name in a group's records: its method, and its flags."""
+    flags = cell_opts(cell).get("flags", {})
+    return cell[0] + "".join(f"/{k}={v}" for k, v in sorted(flags.items()))
+
+
 def dp_cell(method, batch):
     """(method, model, batch, data kind) of a method's cell."""
     model = {"dmpls": "unet_cct", "scribblevc": "scribblevc"}.get(method,
@@ -2784,18 +2966,17 @@ def dp_bundle(cell, spec):
     with its memory gate open from the first step, s2l with its
     pseudo-label term open on its zero buffer (as tests/test_sharding.py
     runs it: pseudo labels thresholded off a refreshed buffer flip with its
-    rounding) and a refresh sweep after the last step. spec["flags"]: more
-    TrainConfig fields (device_data False: the batches stay on the host,
-    each rank keeps its rows there and dp_steps copies them, as the
-    Trainer does)."""
+    rounding) and a refresh sweep after the last step; the cell's own
+    flags and steps (cell_opts)."""
     from wsl4mis_torch.engine.config import TrainConfig
     from wsl4mis_torch.engine.methods.common import DeviceBatches
 
-    method, model_name, batch, kind = cell
+    method, model_name, batch, kind = cell[:4]
     hw, seed = spec["hw"], spec["seed"]
-    flags = dict(spec.get("flags") or {})
+    flags = dict(cell_opts(cell).get("flags", {}))
+    steps = cell_steps(cell)
     if method == "s2l":
-        flags.update(period_iter=spec["steps"], thr_iter=0)
+        flags.update(period_iter=steps, thr_iter=0)
     cfg = TrainConfig(
         method=method, model=model_name, batch_size=batch,
         labeled_bs=batch // 2, max_iterations=100,
@@ -2808,7 +2989,7 @@ def dp_bundle(cell, spec):
     it = new_batches()
     if isinstance(it, DeviceBatches):
         it = it.host
-    return cfg, bundle, [next(it) for _ in range(spec["steps"])]
+    return cfg, bundle, [next(it) for _ in range(steps)]
 
 
 def dp_steps(cfg, bundle, batches, dev, before=None, after=None):
@@ -3048,10 +3229,10 @@ def dp_rank(rank, spec):
         for cell in spec["cells"]:
             cfg, bundle, batches = dp_bundle(cell, spec)
             states = [_snapshot(state_leaves(bundle.state))]
-            refs[cell[0]] = dp_steps(
+            refs[cell_key(cell)] = dp_steps(
                 cfg, bundle, batches, dev, after=lambda *_: states.append(
                     _snapshot(state_leaves(bundle.state))))
-            refs[cell[0]]["states"] = states
+            refs[cell_key(cell)]["states"] = states
             del bundle
     device = f"cuda:{spec['cards'][rank]}" if dev == "cuda" else "cpu"
     parallel.make_mesh(spec["world"], rank, device, spec["init_method"],
@@ -3060,9 +3241,9 @@ def dp_rank(rank, spec):
            "params": {}}
     try:
         for cell in spec["cells"]:
-            method = cell[0]
+            method, key = cell[0], cell_key(cell)
             cfg, bundle, batches = dp_bundle(cell, spec)
-            ref = refs.pop(method, None)
+            ref = refs.pop(key, None)
             params = {k for k, _ in bundle.model.named_parameters()}
             digests, diffs, fails = [], {}, []
 
@@ -3090,13 +3271,11 @@ def dp_rank(rank, spec):
                     k: ref[k] for k in ("losses", "ms_per_step",
                                         "launches")})
                 if spec["keep_states"]:
-                    out["reference"][method] = _cpu_leaves(
-                        ref["states"][-1])
+                    out["reference"][key] = _cpu_leaves(ref["states"][-1])
             if spec["keep_states"]:
-                out["states"][method] = _cpu_leaves(
-                    state_leaves(bundle.state))
-                out["params"][method] = params
-            out["cells"][method] = run
+                out["states"][key] = _cpu_leaves(state_leaves(bundle.state))
+                out["params"][key] = params
+            out["cells"][key] = run
             del bundle, ref
             gc.collect()
             if dev == "cuda":
@@ -3108,10 +3287,9 @@ def dp_rank(rank, spec):
 
 def dp_group(world, cells, dev, out, cards=None, backend="gloo",
              reference=True, keep_states=False, hw=HW, dtype="float32",
-             seed=0, widths=None, steps=DP_STEPS, flags=None):
+             seed=0, widths=None):
     """Spawn `world` dp_rank processes (start method spawn) on a file
-    rendezvous in `out`; returns their outputs in rank order. `flags`:
-    more TrainConfig fields of every cell."""
+    rendezvous in `out`; returns their outputs in rank order."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3120,8 +3298,7 @@ def dp_group(world, cells, dev, out, cards=None, backend="gloo",
     spec = {"world": world, "cells": list(cells), "device": dev,
             "cards": cards, "backend": backend, "reference": reference,
             "keep_states": keep_states, "hw": hw, "dtype": dtype,
-            "seed": seed, "widths": widths, "steps": steps, "out": out,
-            "flags": flags,
+            "seed": seed, "widths": widths, "out": out,
             "init_method": "file://" + os.path.join(out, "rendezvous")}
     mp.start_processes(dp_rank, args=(spec,), nprocs=world,
                        start_method="spawn")
@@ -3132,7 +3309,7 @@ def dp_group(world, cells, dev, out, cards=None, backend="gloo",
 def dp_expected(cell, steps):
     """A rank's launches over `steps` steps of a cell (s2l: and a refresh
     sweep of its DP_SLICES)."""
-    method, model_name, _, _ = cell
+    method, model_name = cell[:2]
     out = {k: v * steps for k, v in per_step_counts(model_name,
                                                     method).items()}
     if method == "s2l":
@@ -3141,18 +3318,18 @@ def dp_expected(cell, steps):
     return out
 
 
-def dp_verdict(outs, cells, dev, steps=DP_STEPS):
+def dp_verdict(outs, cells, dev):
     """The group's runs: on every rank finite losses, the same state
     digests and, on the card, the launches of its steps (the CPU's plain
     versions launch nothing); on rank 0 no failure against the reference.
-    Returns {method: record}."""
+    Returns {cell_key: record}."""
     recs = {}
     for cell in cells:
-        method = cell[0]
+        method = cell_key(cell)
         runs = [o["cells"][method] for o in outs]
         r0 = runs[0]
         digests = {tuple(r["digests"]) for r in runs}
-        want = dp_expected(cell, steps)
+        want = dp_expected(cell, cell_steps(cell))
         expect(dev != "cuda" or all(r["launches"] == want for r in runs),
                f"data parallel {method}: launches "
                f"{[r['launches'] for r in runs]} != {want}")
@@ -3182,9 +3359,8 @@ def dp_nccl_one(seed, dev="cuda", hw=HW, dtype="bfloat16", batch=N,
     first step of each run left out, and the collectives a step."""
     from wsl4mis_torch import parallel
 
-    cell = dp_cell("fully_supervised", batch)
-    spec = {"hw": hw, "seed": seed, "dtype": dtype, "device": dev,
-            "steps": steps}
+    cell = dp_cell("fully_supervised", batch) + ({"steps": steps},)
+    spec = {"hw": hw, "seed": seed, "dtype": dtype, "device": dev}
     runs = {}
     for grouped in (False, True):
         if grouped:
@@ -3224,18 +3400,21 @@ def dp_launch_records(dp):
 
 
 def dp_phase(seed, card, dev="cuda", hw=HW, cells=DP_CELLS, widths=None,
-             nccl_batch=N, nccl_dtype="bfloat16"):
+             nccl_batch=N, nccl_dtype="bfloat16", host_cells=()):
     """Phase 8: (a) two ranks over gloo (on the card: both on cuda:0)
     against the single-process steps at the global batch, every cell in
     f32; (b) one NCCL rank against no group, bit for bit; (c) with more
     than one card, min(4, cards) NCCL ranks on fully_supervised against
-    the single-process steps. Prints the data_parallel line."""
+    the single-process steps. host_cells (phase 11's two-rank cells, with
+    their own flags and steps) run in (a)'s group after `cells`, so that
+    one spawn serves both phases. Prints the data_parallel line."""
     import torch
 
     t0 = time.perf_counter()
     base = os.path.join(ROOT, "build", "chip_smoke", "dp")
     if dev == "cuda":
         torch.cuda.empty_cache()
+    cells = list(cells) + list(host_cells)
     outs = dp_group(2, cells, dev, os.path.join(base, "two_ranks"),
                     cards=[0, 0] if dev == "cuda" else None, hw=hw,
                     seed=seed, widths=widths)
@@ -3652,29 +3831,35 @@ def trace_launches(events):
 MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 
 
-def traced_window(fn, steps, pad):
-    """fn() (which runs `steps` steps) in a torch.profiler window, between
-    two marker kernels (torch.cuda._sleep) with one pad() call before the
-    first and after the second: its device events between the markers,
-    wall ms a step, device busy ms a step and busy share. A trace can lose
-    the records of the first kernels launched after its window opens (on
-    the H100, in some eager windows, the first step's augment launches;
+def traced_windows(segments, pad):
+    """Segments (prep, fn, steps) in one torch.profiler window: pad(),
+    then for each segment prep() (if any; untimed, outside the marks) and
+    fn(), which runs `steps` steps, between two marker kernels
+    (torch.cuda._sleep) of its own, then pad(). A trace can lose the
+    records of the first kernels launched after its window opens (on the
+    H100, in some eager windows, the first step's augment launches;
     tools/trace_loss_probe.py counts such windows), so only the marked
-    segment is read."""
+    segments are read. For each segment its device events between its
+    marks, wall ms a step, device busy ms a step and busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pad()
         torch.cuda.synchronize()
-        torch.cuda._sleep(100)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-        torch.cuda._sleep(100)
+        for prep, fn, _ in segments:
+            if prep is not None:
+                prep()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(100)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e6 * (time.perf_counter() - t0))
+            torch.cuda._sleep(100)
         pad()
         torch.cuda.synchronize()
     timed = sorted(
@@ -3684,12 +3869,18 @@ def traced_window(fn, steps, pad):
         and not getattr(e, "is_hidden_event", lambda: False)())
     marks = [i for i, (_, name, _) in enumerate(timed)
              if MARKER_KERNEL in name]
-    expect(len(marks) == 2, f"trace: {len(marks)} marker kernels, not 2")
-    events = [(name, us) for _, name, us in timed[marks[0] + 1:marks[1]]]
-    busy_us = sum(us for _, us in events)
-    return events, {"ms_per_step": 1e-3 * wall_us / steps,
-                    "device_busy_ms_per_step": 1e-3 * busy_us / steps,
-                    "device_busy_share": busy_us / wall_us}
+    expect(len(marks) == 2 * len(segments),
+           f"trace: {len(marks)} marker kernels, not {2 * len(segments)}")
+    out = []
+    for n, ((_, _, steps), wall_us) in enumerate(zip(segments, walls)):
+        events = [(name, us) for _, name, us in
+                  timed[marks[2 * n] + 1:marks[2 * n + 1]]]
+        busy_us = sum(us for _, us in events)
+        out.append((events, {"ms_per_step": 1e-3 * wall_us / steps,
+                             "device_busy_ms_per_step":
+                                 1e-3 * busy_us / steps,
+                             "device_busy_share": busy_us / wall_us}))
+    return out
 
 
 def _metrics_leaves(m, prefix=""):
@@ -3752,8 +3943,9 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     batches, every leaf and each call's metrics bit-equal; the variants
     picked and captured (their order, whether a replay reorders them); the
     wrappers' counts of the warm-ups and captures; ms/step eager against
-    captured over `timed` steps; `traced` calls and as many eager steps in
-    profile windows (busy share, and each kernel's launches from the
+    captured over `timed` steps; `traced` calls and as many eager steps as
+    two marked segments of one profile window (busy share, and each
+    kernel's launches from the
     trace: per_step_counts a step, for both); capture seconds of each
     variant and peak GB. `flags`: more TrainConfig fields; `refresh`: run
     s2l's host hook once first (a live pseudo-label buffer)."""
@@ -3838,10 +4030,9 @@ def capture_run(method, model_name, batch, data, seed, dev="cuda", hw=HW,
     graphs_after = len(captured.graphs)
     t_part = part("timed", t_part)
     steps = k * traced
-    ev_eager, prof_eager = traced_window(lambda: eager(steps), steps,
-                                         lambda: eager(1))
-    ev_cap, prof_cap = traced_window(lambda: captured_calls(traced), steps,
-                                     lambda: captured(batches[:1]))
+    (ev_eager, prof_eager), (ev_cap, prof_cap) = traced_windows(
+        [(None, lambda: eager(steps), steps),
+         (None, lambda: captured_calls(traced), steps)], lambda: eager(1))
     per_call = {key: v * k for key, v in per.items()}
     eager_trace = trace_launches(ev_eager)
     cap_trace = trace_launches(ev_cap)
@@ -4292,6 +4483,17 @@ DD_K = CAPTURE_K  # steps compared a method: eager, and one captured call
 DD_DP_CELLS = (("uamt", "unet", SEMI_N, "semi"),
                ("scribblevc", "scribblevc", SVC_N, "svc"))
 DD_DP_STEPS = 1  # each held to the single process's from the same state
+
+
+def host_fed(cell):
+    """A data-parallel cell as phase 11 runs it: host-fed batches,
+    DD_DP_STEPS steps (cell_opts)."""
+    return cell[:4] + ({"flags": {"device_data": False},
+                        "steps": DD_DP_STEPS},)
+
+
+# phase 8's two-rank group runs these after its own cells
+DD_HOST_CELLS = tuple(map(host_fed, DD_DP_CELLS))
 DD_NAN_STEPS = 4  # fs b24 steps timed with and without debug_nans
 
 
@@ -4302,11 +4504,12 @@ def device_data_run(method, model_name, batch, data, seed, dev="cuda",
     (the same slices); k eager steps of each, and one k-step captured call
     (engine.graph.CapturedStep; on the card) of the host-fed one, every
     leaf and metric of each bit-equal to the staged eager steps. On the
-    card the host-fed eager steps run in a profile window (traced_window,
-    padded by staged steps), and the captured call, replayed from the
-    same state, in another: ms/step and busy share of each, and the
-    launches, per_step_counts a step (the trace's of the host-fed steps;
-    the counters' with the two pads)."""
+    card the captured call and its check come first; then the host-fed
+    eager steps and the captured call, replayed from the same state, run
+    as two marked segments of one profile window (traced_windows, padded
+    by staged steps): ms/step and busy share of each, and the launches,
+    per_step_counts a step (the trace's of the host-fed steps; the
+    counters' with the two pads)."""
     import torch
 
     from wsl4mis_torch.engine.config import TrainConfig
@@ -4360,32 +4563,38 @@ def device_data_run(method, model_name, batch, data, seed, dev="cuda",
         return bad, worst, sorted(key for key, v in want_metrics.items()
                                   if not torch.equal(v, metrics[key]))
 
+    cap_bad = ([], 0.0, [])
+    if dev == "cuda":  # the captured call first, so that one trace times both
+        captured = CapturedStep(fed.step_fn, state, None, seed, fed.variant)
+        cap_metrics = _metrics_leaves(captured(batches[False]))
+        sync(dev)
+        cap_bad = differing(_snapshot(state_leaves(state)), cap_metrics)
+        _restore(state, start_leaves)
     reset_counts()
     if dev == "cuda":
-        ev_eager, prof_eager = traced_window(fed_eager, k, pad)
+        def again():  # the eager steps' state kept, the start put back
+            got["leaves"] = _snapshot(state_leaves(state))
+            _restore(state, start_leaves)  # the same steps: graphs exist
+
+        (ev_eager, prof_eager), (_, prof_cap) = traced_windows(
+            [(None, fed_eager, k),
+             (again, lambda: captured(batches[False]), k)], pad)
     else:
         fed_eager()
+        got["leaves"] = _snapshot(state_leaves(state))
     sync(dev)
-    counts = launch_counts()
+    counts = launch_counts()  # the replays are not counted
     pads = 2 if dev == "cuda" else 0
     expected = {key: v * (k + pads) for key, v in per.items()}
-    eager_bad = differing(_snapshot(state_leaves(state)), got["metrics"])
+    eager_bad = differing(got["leaves"], got["metrics"])
     rec = {"method": method, "model": model_name, "batch": batch, "k": k,
            "start": start, "leaves": len(want),
            "eager_leaves_differing": eager_bad[0],
            "eager_metrics_differing": eager_bad[2],
            "launches": counts, "expected": expected}
-    cap_bad = ([], 0.0, [])
     if dev == "cuda":
-        rec["eager_trace_launches"] = trace_launches(ev_eager)
-        _restore(state, start_leaves)
-        captured = CapturedStep(fed.step_fn, state, None, seed, fed.variant)
-        cap_metrics = _metrics_leaves(captured(batches[False]))
-        sync(dev)
-        cap_bad = differing(_snapshot(state_leaves(state)), cap_metrics)
-        _restore(state, start_leaves)  # the same steps: their graphs exist
-        _, prof_cap = traced_window(lambda: captured(batches[False]), k, pad)
-        rec.update(graphs=len(captured.graphs),
+        rec.update(eager_trace_launches=trace_launches(ev_eager),
+                   graphs=len(captured.graphs),
                    capture_s=sum(captured.capture_s.values()),
                    eager_ms_per_step=prof_eager["ms_per_step"],
                    captured_ms_per_step=prof_cap["ms_per_step"],
@@ -4490,13 +4699,17 @@ def debug_nans_part(seed, data, dev="cuda", hw=HW, batch=N,
 
 def device_data_phase(seed, datasets, val, card, eager_dice, dev="cuda",
                       hw=HW, runs=CAPTURE_RUNS, dp_cells=DD_DP_CELLS,
-                      widths=None, nan_batch=N):
+                      widths=None, nan_batch=N, two_ranks=None):
     """Phase 11: device_data_run for the methods at their phase-3 cells
     (`runs`: CAPTURE_RUNS), the train command with --device_data 0
     --steps_per_call 4 (capture_cli: captured, phase 5's Dice bit for bit
     and its LEARN_RUNS bound), two gloo ranks with device_data 0 against
-    the single process (dp_group, phase 8's tolerances; on the card both
-    on cuda:0), and debug_nans (debug_nans_part); the device_data line."""
+    the single process (phase 8's tolerances; on the card both on
+    cuda:0), and debug_nans (debug_nans_part); the device_data line.
+    The two ranks run host_fed(dp_cells); two_ranks: phase 8's
+    {cell_key: record} where its group ran them (DD_HOST_CELLS), else
+    this phase spawns its own group (dp_group). Its records are keyed by
+    method."""
     import torch
 
     t0 = time.perf_counter()
@@ -4519,12 +4732,15 @@ def device_data_phase(seed, datasets, val, card, eager_dice, dev="cuda",
         expect(dice >= LEARN_RUNS[0][4],
                f"--device_data 0: val Dice {dice} under {LEARN_RUNS[0][4]}")
     t1 = time.perf_counter()
-    outs = dp_group(2, dp_cells, dev, os.path.join(
-        ROOT, "build", "chip_smoke", "dd_two_ranks"),
-        cards=[0, 0] if dev == "cuda" else None, hw=hw, seed=seed,
-        widths=widths, steps=DD_DP_STEPS, flags={"device_data": False})
-    two = dp_verdict(outs, dp_cells, dev, DD_DP_STEPS)
-    dp_s = time.perf_counter() - t1
+    cells, dp_s = [host_fed(cell) for cell in dp_cells], None
+    if two_ranks is None:
+        outs = dp_group(2, cells, dev, os.path.join(
+            ROOT, "build", "chip_smoke", "dd_two_ranks"),
+            cards=[0, 0] if dev == "cuda" else None, hw=hw, seed=seed,
+            widths=widths)
+        two_ranks = dp_verdict(outs, cells, dev)
+        dp_s = time.perf_counter() - t1
+    two = {cell[0]: two_ranks[cell_key(cell)] for cell in cells}
     nans = debug_nans_part(seed, datasets["dense"], dev, hw, nan_batch)
     out = {"card": card, "runs": recs, "cli": cli_run, "two_ranks": two,
            "debug_nans": nans, "runs_s": runs_s, "two_ranks_s": dp_s,
@@ -4557,21 +4773,34 @@ def dd_launch_records(dd):
     recs = [{"launches": r["launches"]} for r in dd["runs"]]
     if dd["cli"] is not None:
         recs.append({"launches": dd["cli"]["launches"]})
-    recs += [{"launches": d} for r in dd["two_ranks"].values()
-             for d in r["launches"]]
+    if dd["two_ranks_s"] is not None:  # else phase 8's records count them
+        recs += [{"launches": d} for r in dd["two_ranks"].values()
+                 for d in r["launches"]]
     return recs + [{"launches": d} for d in dd["debug_nans"]["launches"]]
 
 
 # ---- main --------------------------------------------------------------------
 
 
-def summarize(recs, launches):
+CONV_KERNELS = ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad")
+# the roles of a step's conv launches (conv_role) that each kernel serves
+F32_ROLES = {"conv3x3_fwd": ("fwd", "dgrad"),
+             "conv3x3_fwd_stats": ("fwd_stats",),
+             "conv3x3_wgrad": ("wgrad",)}
+
+
+def summarize(recs, launches, f32_launches):
     """Per-kernel JSON entries: times summed over one fully_supervised
     training step's shapes (bf16, batch 24, the timed records; for
     gated_crf one pce_gatedcrf step's launch, f32, batch 6; for
     augment_s2l one s2l step's launch, batch 12); max_abs_err over every
     check, in the path's dtype, of a launch on a training path (batches
-    24, 12 and 6, the validation forward and the refresh's)."""
+    24, 12 and 6, the validation forward and the refresh's). The conv
+    kernels' f32 instantiations get entries of their own (name + "_f32"):
+    their times conv_step_sums' over the f32 launches of that step (the
+    roles in F32_ROLES; the stats forward has no library call: cuDNN
+    computes no moments), the launches of the f32 cell (f32_launches), and
+    library_tf32_ms beside library_ms."""
     rows = {
         "conv3x3_fwd": (SRC_CONV, f"{PALLAS_CONV}:329", "bfloat16"),
         "conv3x3_fwd_stats": (SRC_CONV, f"{PALLAS_CONV}:340", "bfloat16"),
@@ -4589,23 +4818,38 @@ def summarize(recs, launches):
         "maxpool_fwd": (SRC_POOL, f"{PALLAS_POOL}:70", "bfloat16"),
         "maxpool_bwd": (SRC_POOL, f"{PALLAS_POOL}:92", "bfloat16"),
     }
+    entries = [(name, name, dtype, launches[name])
+               for name, (_, _, dtype) in rows.items()]
+    entries += [(f"{name}_f32", name, "float32", f32_launches[name])
+                for name in CONV_KERNELS]
+    f32 = conv_step_sums(recs, "float32")
     out = []
-    for name, (source, replaces, dtype) in rows.items():
-        path = [r for r in recs if r["kernel"] == name
+    for name, kernel, dtype, count in entries:
+        source, replaces, _ = rows[kernel]
+        path = [r for r in recs if r["kernel"] == kernel
                 and r["dtype"] == dtype and _on_path(r)]
         mine = [r for r in path if "ms" in r]
-        lib = [r["library_ms"] for r in mine]
+        if name.endswith("_f32"):
+            parts = [f32[role] for role in F32_ROLES[kernel] if role in f32]
+            times = {k: _sum([p[k] for p in parts]) for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms",
+                "library_tf32_ms")}
+            if kernel == "conv3x3_fwd_stats":
+                times.update(library_ms=None, library_tf32_ms=None)
+        else:
+            times = {k: _sum([r[k] for r in mine]) for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in path),
-            "ms": sum(r["ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": _bound_by(mine),
-            "library_ms": None if None in lib else sum(lib),
-        })
+            "bound_by": _bound_by(mine), **times})
     return out
+
+
+def _sum(values):
+    """The sum of a list of times, None if one is missing."""
+    return None if None in values else sum(values)
 
 
 def _bound_by(recs):
@@ -4633,39 +4877,83 @@ def _on_path(r):
     return True
 
 
-def conv_table(recs):
-    """Markdown rows, one per UNet conv, of the b24 bf16 step's conv
-    launches: the forward (fwd_stats, fwd for the head), the dgrad and
-    the wgrad, each as ms / bound ms / cuDNN ms (the forward's cuDNN is
-    F.conv2d, which computes no moments)."""
-    mine = {}
-    for r in recs:
-        if (r["kernel"].startswith("conv3x3") and r["dtype"] == "bfloat16"
-                and "ms" in r and r["shape"][0] == N
-                and r.get("case") is None and _on_path(r)):
-            role = ("wgrad" if r["kernel"] == "conv3x3_wgrad"
-                    else r.get("role") or "fwd")
-            mine[(r["conv"], role)] = r
-    lib_fwd = {r["conv"]: r["library_ms"] for r in recs
-               if r["kernel"] == "conv3x3_fwd" and "ms" in r
-               and r["dtype"] == "bfloat16" and r.get("role") is None
-               and r.get("case") is None and r["shape"][0] == N}
+def conv_table(recs, dtype="bfloat16"):
+    """Markdown rows, one per UNet conv, of the b24 step's conv launches in
+    `dtype`: the forward (fwd_stats, fwd for the head), the dgrad and the
+    wgrad, each as ms / bound ms / cuDNN ms (the forward's cuDNN is
+    F.conv2d, which computes no moments; f32: cuDNN with TF32 off, then
+    with TF32 on)."""
+    keys = ["library_ms"] + (["library_tf32_ms"] if dtype == "float32"
+                             else [])
+    mine, lib_fwd = step_convs(recs, dtype)
 
     def cell(r, lib=None):
         if r is None:
             return "—"
-        lib = r["library_ms"] if lib is None else lib
-        lib = "—" if lib is None else f"{lib:.4f}"
-        return f"{r['ms']:.4f} / {r['bound_ms']:.4f} / {lib}"
+        libs = [(lib or r)[k] for k in keys]
+        return " / ".join([f"{r['ms']:.4f}", f"{r['bound_ms']:.4f}"] + [
+            "—" if v is None else f"{v:.4f}" for v in libs])
 
-    rows = ["| conv | C→O | H | fwd(+stats) ms / bound / cuDNN | dgrad | "
+    head = "cuDNN" if dtype == "bfloat16" else "cuDNN / cuDNN TF32"
+    rows = [f"| conv | C→O | H | fwd(+stats) ms / bound / {head} | dgrad | "
             "wgrad |", "|---|---|---|---|---|---|"]
     for name, c, o, h in unet_convs():
-        fwd = mine.get((name, "fwd"))
+        fwd = mine.get((name, "fwd_stats")) or mine.get((name, "fwd"))
         dg = mine.get((name, "dgrad"))
         rows.append(f"| {name} | {c}→{o} | {h} | {cell(fwd, lib_fwd.get(name))}"
                     f" | {cell(dg)} | {cell(mine.get((name, 'wgrad')))} |")
     return rows
+
+
+def conv_role(r):
+    """A conv kernel-check record's role: wgrad, dgrad, eval (the
+    validation forward), fwd_stats, or fwd (the fwd kernel as a forward:
+    the head's on the training path)."""
+    if r["kernel"] == "conv3x3_wgrad":
+        return "wgrad"
+    return r.get("role") or ("fwd_stats" if r["kernel"]
+                             == "conv3x3_fwd_stats" else "fwd")
+
+
+def step_convs(recs, dtype):
+    """The timed conv records of the b24 step in `dtype` (batch N, no
+    case): ({(conv, role): record} of the training path's launches,
+    {conv: record} of each conv's fwd-kernel forward, whose F.conv2d is
+    the library call at that conv's forward shape)."""
+    mine, fwd = {}, {}
+    for r in recs:
+        if not (r["kernel"].startswith("conv3x3") and r["dtype"] == dtype
+                and "ms" in r and r.get("case") is None
+                and r["shape"][0] == N):
+            continue
+        role = conv_role(r)
+        if role == "fwd":
+            fwd[r["conv"]] = r
+        if _on_path(r):
+            mine[(r["conv"], role)] = r
+    return mine, fwd
+
+
+def conv_step_sums(recs, dtype):
+    """Sums over the b24 step's conv launches in `dtype` (step_convs), per
+    role (fwd_stats, fwd: the head, dgrad, wgrad) and in all: launches,
+    ms, plain_ms, bound_ms and the library times (f32: TF32 off and on;
+    None where a launch has none); the stats forward's library times are
+    F.conv2d's at its shape (cuDNN computes no moments)."""
+    keys = ["ms", "plain_ms", "bound_ms", "library_ms"] + (
+        ["library_tf32_ms"] if dtype == "float32" else [])
+    mine, plain_fwd = step_convs(recs, dtype)
+    out = {}
+    for (conv, role), r in mine.items():
+        lib = plain_fwd.get(conv, {}) if role == "fwd_stats" else r
+        vals = {k: lib.get(k) if k.startswith("library") else r[k]
+                for k in keys}
+        for key in (role, "all"):
+            s = out.setdefault(key, {"launches": 0, **{k: 0.0 for k in keys}})
+            s["launches"] += 1
+            for k in keys:
+                s[k] = _sum([s[k], vals[k]])
+    return out
 
 
 def wrapper_calls():
@@ -4774,6 +5062,12 @@ def mma_counts(sass):
     return counts
 
 
+def f32_conv_sass(sass):
+    """The f32 conv kernels' entries of conv_sass_report."""
+    return {fn: k for fn, k in sass.items()
+            if re.search(r"conv3x3_(?:fwd|wgrad)_kernel\b", fn)}
+
+
 def conv_sass_report(lib_path, nvcc):
     """Tensor-core instruction counts of every function in the built conv
     library (cuobjdump -sass), names demangled by cu++filt."""
@@ -4846,13 +5140,16 @@ def main(argv=None):
     mma = {fn: k for fn, k in sass.items() if "_mma_kernel" in fn}
     expect(len(mma) == 11 and all(mma.values()),
            f"sass: the bf16 conv kernels hold no tensor-core op: {mma}")
+    # the f32 kernels, as many, compute in exact f32: no tensor-core op
+    f32 = f32_conv_sass(sass)
+    expect(len(f32) == 11 and not any(f32.values()),
+           f"sass: the f32 conv kernels hold tensor-core ops: {f32}")
 
     recs = []
     for dtype in ("bfloat16", "float32"):
         for name, c, o, h in unet_convs():
-            recs += check_conv(name, c, o, h, dtype, N,
-                               timed=dtype == "bfloat16",
-                               repeat=dtype == "bfloat16")
+            recs += check_conv(name, c, o, h, dtype, N, timed=True,
+                               repeat=True)
             for n in (MS_N, DMPLS_N):
                 recs += check_conv(name, c, o, h, dtype, n, timed=False)
             for n in (EVAL_N, REFRESH_N):
@@ -4972,6 +5269,8 @@ def main(argv=None):
     fs = runs[0]["losses"]
     expect(np.mean(fs[-5:]) < np.mean(fs[:5]),
            f"fully_supervised loss did not fall: {fs}")
+    f32_sums = conv_step_sums(recs, "float32")
+    f32 = f32_cell(args.seed, data, card, f32_sums["all"]["bound_ms"])
     phase_s["training"] = time.perf_counter() - t0 - sum(phase_s.values())
     ref = reference_check(args.seed)
     svc_ref = svc_reference_check(args.seed)
@@ -4992,7 +5291,7 @@ def main(argv=None):
     expect(not parallel.active() and not any(parallel.calls.values()),
            f"collectives before the data-parallel phase: {parallel.calls}")
     print("collectives in phases 1-7: 0", flush=True)
-    dp = dp_phase(args.seed, card)
+    dp = dp_phase(args.seed, card, host_cells=DD_HOST_CELLS)
     phase_s["data_parallel"] = (time.perf_counter() - t0
                                 - sum(phase_s.values()))
     surface = surface_phase(args.seed, val, card,
@@ -5005,13 +5304,14 @@ def main(argv=None):
     captured = capture_phase(args.seed, datasets, val, card,
                              entry["runs"][0]["val_dice"][-1])
     phase_s["captured"] = time.perf_counter() - t0 - sum(phase_s.values())
-    device_data = device_data_phase(args.seed, datasets, val, card,
-                                    entry["runs"][0]["val_dice"][-1])
+    device_data = device_data_phase(
+        args.seed, datasets, val, card, entry["runs"][0]["val_dice"][-1],
+        two_ranks=dp["two_ranks_gloo"])
     phase_s["device_data"] = (time.perf_counter() - t0
                               - sum(phase_s.values()))
     print("phase-s " + json.dumps(phase_s), flush=True)
 
-    counted = runs + entry["runs"] + [entry["host_aug"]] + [
+    counted = runs + [f32] + entry["runs"] + [entry["host_aug"]] + [
         r["inference"] for r in entry["runs"]] + zoo["train"] + zoo[
         "inference"] + [r for r in zoo["models"] if "launches" in r] + (
         resume["runs"] + [resume["cli"]]) + dp_launch_records(dp) + (
@@ -5024,15 +5324,20 @@ def main(argv=None):
                 for k in runs[0]["launches"]}
     idle = sorted(k for k, v in launches.items() if v == 0)
     expect(not idle, f"kernels never launched on a training path: {idle}")
-    kernels = summarize(recs, launches)
+    kernels = summarize(recs, launches, f32["launches"])
     table = conv_table(recs)
     for row in table:
         print(f"conv-table {row}", flush=True)
+    table_f32 = conv_table(recs, "float32")
+    for row in table_f32:
+        print(f"conv-table-f32 {row}", flush=True)
+    print("conv-f32-step " + json.dumps(f32_sums), flush=True)
     detail = {"card": card, "torch": torch.__version__,
               "build_s": build_s, "phase_s": phase_s, "ptxas": ptxas,
               "sass_mma": sass,
               "wrapper_host_us": host_us, "sync_free": sync_free,
-              "conv_table": table, "checks": recs,
+              "conv_table": table, "conv_table_f32": table_f32,
+              "conv_f32_step": f32_sums, "f32_cell": f32, "checks": recs,
               "runs": runs, "entry": entry, "zoo": zoo, "resume": resume,
               "data_parallel": dp, "surface": surface, "captured": captured,
               "device_data": device_data,

@@ -336,9 +336,11 @@ def test_gated_crf_check_runs_on_the_cpu_and_counts_its_work():
 
 
 def test_summary_lists_every_kernel_with_every_key():
-    """summarize() gives one entry per kernel wrapper of the port, each
-    with the keys of the kernels line; records off the training path (a
-    stats launch of the head, GatedCRF at another batch) stay out."""
+    """summarize() gives one entry per kernel wrapper of the port and one
+    per conv wrapper's f32 instantiation (name + "_f32", with the f32
+    cell's launches and cuDNN's TF32 time beside its f32 one), each with
+    the keys of the kernels line; records off the training path (a stats
+    launch of the head, GatedCRF at another batch) stay out."""
     timing = {"ms": 2.0, "plain_ms": 3.0, "library_ms": 1.0,
               "bound_ms": 0.5, "bound_by": "bytes"}
 
@@ -346,6 +348,7 @@ def test_summary_lists_every_kernel_with_every_key():
         return {"kernel": kernel, "dtype": dtype, "max_abs_err": err,
                 **timing, **kw}
 
+    step = [chip_smoke.N, 8, 8, 1, 1]  # a launch of the b24 step
     recs = [
         rec("conv3x3_fwd", "bfloat16", 0.1, conv="head"),
         rec("conv3x3_fwd", "bfloat16", 0.9, conv="enc0.conv2"),  # off path
@@ -363,15 +366,29 @@ def test_summary_lists_every_kernel_with_every_key():
         rec("maxpool_fwd", "bfloat16", 0.0, pool="pool0"),
         rec("maxpool_fwd", "float32", 0.9, pool="pool0"),  # not the path's
         rec("maxpool_bwd", "bfloat16", 0.0, pool="pool0"),
+        rec("conv3x3_fwd", "float32", 0.1, conv="head",
+            library_tf32_ms=0.25, shape=step),
+        rec("conv3x3_fwd", "float32", 0.9, conv="enc0.conv2",
+            library_tf32_ms=0.25, shape=step),  # off path
+        rec("conv3x3_fwd_stats", "float32", 0.2, conv="enc0.conv1",
+            library_ms=None, library_tf32_ms=None, shape=step),
+        rec("conv3x3_wgrad", "float32", 0.3, conv="head",
+            library_tf32_ms=0.25, shape=step),
     ]
     launches = {k: 0 for d in chip_smoke._counters() for k in d}
-    rows = chip_smoke.summarize(recs, launches)
-    assert sorted(r["name"] for r in rows) == sorted(launches)
-    assert len(rows) == 8
+    f32_launches = {k: 7 for k in launches}
+    rows = chip_smoke.summarize(recs, launches, f32_launches)
+    convs = ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad")
+    assert sorted(r["name"] for r in rows) == sorted(
+        list(launches) + [f"{k}_f32" for k in convs])
+    assert len(rows) == 11
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for r in rows:
-        assert set(r) == keys and r["route"] == "cuda"
+        f32 = r["name"].endswith("_f32")
+        assert set(r) == keys | ({"library_tf32_ms"} if f32 else set())
+        assert r["route"] == "cuda"
+        assert r["launches"] == (7 if f32 else 0)
         assert os.path.isfile(os.path.join(REPO, r["source"]))
         path, line = r["replaces"].split(":")
         with open(os.path.join(REPO, path)) as f:
@@ -384,6 +401,12 @@ def test_summary_lists_every_kernel_with_every_key():
     assert by_name["gated_crf"]["library_ms"] is None
     assert by_name["gated_crf"]["bound_by"] == "operations"
     assert by_name["maxpool_bwd"]["library_ms"] == 1.0
+    assert by_name["conv3x3_fwd_f32"]["max_abs_err"] == 0.1
+    assert by_name["conv3x3_fwd_f32"]["library_tf32_ms"] == 0.25
+    assert by_name["conv3x3_wgrad_f32"]["replaces"] == \
+        by_name["conv3x3_wgrad"]["replaces"]
+    assert by_name["conv3x3_fwd_stats_f32"]["library_ms"] is None
+    assert by_name["conv3x3_fwd_stats_f32"]["library_tf32_ms"] is None
 
 
 def test_bound_is_the_larger_side():
@@ -594,29 +617,190 @@ def test_conv_table_has_a_row_per_conv_from_the_step_records():
     assert head[5].strip() == head[6].strip() == "—"
 
 
+def _conv_rec(kernel, conv, ms, lib, role=None, dtype="float32",
+              tf32=None):
+    r = {"kernel": kernel, "conv": conv, "dtype": dtype,
+         "shape": [chip_smoke.N, 8, 8, 1, 1], "ms": ms, "plain_ms": 2 * ms,
+         "bound_ms": 0.5, "library_ms": lib}
+    if dtype == "float32":
+        r["library_tf32_ms"] = tf32
+    if role:
+        r["role"] = role
+    return r
+
+
+def test_conv_table_and_step_sums_in_f32():
+    """conv_table(recs, "float32") lists the f32 launches with cuDNN with
+    TF32 off and on; conv_step_sums sums the step's launches per role and
+    in all, the stats forward's cuDNN times F.conv2d's at its shape; the
+    other dtype's records stay out of both."""
+    recs = [_conv_rec("conv3x3_fwd", "enc0.conv2", 9.0, 3.0, tf32=1.0),
+            _conv_rec("conv3x3_fwd_stats", "enc0.conv2", 2.0, None),
+            _conv_rec("conv3x3_fwd", "enc0.conv2", 1.5, 2.5, "dgrad",
+                      tf32=0.5),
+            _conv_rec("conv3x3_wgrad", "enc0.conv2", 1.25, 4.0, tf32=2.0),
+            _conv_rec("conv3x3_fwd", "head", 0.75, 1.0, tf32=0.25),
+            _conv_rec("conv3x3_wgrad", "enc0.conv2", 7.0, 7.0,
+                      dtype="bfloat16")]
+    rows = chip_smoke.conv_table(recs, "float32")
+    assert "cuDNN / cuDNN TF32" in rows[0] and len(rows) == 2 + 19
+    names = [row.split("|")[1].strip() for row in rows[2:]]
+    enc0 = rows[2 + names.index("enc0.conv2")].split("|")
+    assert [cell.strip() for cell in enc0[4:7]] == [
+        "2.0000 / 0.5000 / 3.0000 / 1.0000",
+        "1.5000 / 0.5000 / 2.5000 / 0.5000",
+        "1.2500 / 0.5000 / 4.0000 / 2.0000"]
+    sums = chip_smoke.conv_step_sums(recs, "float32")
+    assert set(sums) == {"fwd_stats", "dgrad", "wgrad", "fwd", "all"}
+    assert sums["fwd_stats"] == {
+        "launches": 1, "ms": 2.0, "plain_ms": 4.0, "bound_ms": 0.5,
+        "library_ms": 3.0, "library_tf32_ms": 1.0}
+    assert sums["all"]["launches"] == 4
+    assert sums["all"]["ms"] == pytest.approx(2.0 + 1.5 + 1.25 + 0.75)
+    assert sums["all"]["library_tf32_ms"] == pytest.approx(3.75)
+    assert "library_tf32_ms" not in chip_smoke.conv_step_sums(
+        recs, "bfloat16")["all"]
+
+
+@pytest.mark.parametrize("caller_tf32", [False, True])
+@pytest.mark.parametrize("c,o,h,w", chip_smoke.RAGGED_CONVS)
+def test_conv_check_runs_timed_in_f32_on_the_cpu(monkeypatch, c, o, h, w,
+                                                  caller_tf32):
+    """check_conv in f32 with timed=True on the CPU (a stand-in time_ms
+    runs each call once and notes cuDNN's TF32 switch): every record has
+    ms, plain_ms, library_ms and library_tf32_ms (None for the forward
+    with moments: no one call computes it); the kernel is timed under the
+    caller's setting, the plain version and the f32 yardstick with TF32
+    off, the TF32 yardstick with it on, and the caller's setting is back
+    after."""
+    seen = []
+
+    def fake_time_ms(fn, reps=12, warmup=3):
+        fn()
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return 1.0
+
+    monkeypatch.setattr(chip_smoke, "time_ms", fake_time_ms)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", caller_tf32)
+    recs = chip_smoke.check_conv(f"ragged {c}->{o}", c, o, h, "float32", 2,
+                                 timed=True, dev="cpu", width=w,
+                                 case="ragged", repeat=True)
+    assert torch.backends.cudnn.allow_tf32 is caller_tf32
+    assert [r["kernel"] for r in recs] == [
+        "conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_fwd", "conv3x3_wgrad"]
+    for r in recs:
+        assert r["ok"] and r["repeat_bit_equal"] and r["ms"] == 1.0
+        assert r["plain_ms"] == 1.0
+        stats = r["kernel"] == "conv3x3_fwd_stats"
+        assert r["library_ms"] == r["library_tf32_ms"] == (
+            None if stats else 1.0)
+    k = caller_tf32
+    assert seen == [k, False, False, True, k, False, k, False, False, True,
+                    k, False, False, True]
+
+
+def test_f32_conv_sass_picks_the_f32_kernels():
+    """f32_conv_sass keeps the f32 conv kernels' entries of a SASS report
+    (demangled names), not the bf16 _mma_kernels' or another library's."""
+    sass = {"void <unnamed>::conv3x3_fwd_kernel<(int)128, (bool)1>("
+            "const float *)": 0,
+            "void <unnamed>::conv3x3_wgrad_kernel<(int)64>(const float *)":
+            2,
+            "void <unnamed>::conv3x3_fwd_mma_kernel<(int)16, (bool)0>("
+            "const __nv_bfloat16 *)": 40,
+            "void <unnamed>::conv3x3_wgrad_mma_kernel<(int)64>()": 12,
+            "void <unnamed>::maxpool_fwd_kernel<float, (int)4>()": 0}
+    assert chip_smoke.f32_conv_sass(sass) == {
+        "void <unnamed>::conv3x3_fwd_kernel<(int)128, (bool)1>("
+        "const float *)": 0,
+        "void <unnamed>::conv3x3_wgrad_kernel<(int)64>(const float *)": 2}
+
+
+def test_conv_trace_ms_splits_the_conv_kernels_by_role():
+    """conv_trace_ms sums a trace's conv kernels a step by launch counter,
+    the f32 ones of either design (demangled or mangled) and the bf16
+    ones, and leaves every other kernel out."""
+    events = [("void (anonymous namespace)::conv3x3_fwd_kernel<128, true>"
+               "(float const*)", 10.0),
+              ("_ZN12_GLOBAL__N_118conv3x3_fwd_kernelIfLb0EEEvPKT_", 4.0),
+              ("void (anonymous namespace)::conv3x3_wgrad_kernel<64>()", 6.0),
+              ("_ZN12_GLOBAL__N_120conv3x3_wgrad_kernelIfLi4ELi4EEEvPKT_",
+               2.0),
+              ("void (anonymous namespace)::conv3x3_fwd_mma_kernel<16, "
+               "false>()", 8.0),
+              ("void (anonymous namespace)::maxpool_fwd_kernel<float, 4>()",
+               100.0)]
+    got = chip_smoke.conv_trace_ms(events, 2)
+    assert got == {"conv3x3_fwd_stats": pytest.approx(0.005),
+                   "conv3x3_fwd": pytest.approx(0.006),
+                   "conv3x3_wgrad": pytest.approx(0.004),
+                   "all": pytest.approx(0.015)}
+
+
+def test_f32_cell_counts_a_steps_launches_on_the_cpu(monkeypatch):
+    """The f32 cell on the CPU (its eager steps alone; the capture and the
+    traces need a card), counting the calls that reach each wrapper: its
+    k steps launch per_step_counts a step, and the cell's launches are
+    those and the warm-up step's."""
+    calls = _count_launches(monkeypatch)
+    data = synthetic_slices(8, (32, 32), seed=0)
+    rec = chip_smoke.f32_cell(0, data, "cpu", 1.5, dev="cpu", hw=32,
+                              batch=2, k=2)
+    per = chip_smoke.per_step_counts("unet", "fully_supervised")
+    assert rec["step_launches"] == {k: 2 * v for k, v in per.items()}
+    assert rec["expected_step_launches"] == rec["step_launches"]
+    assert rec["launches"] == calls == {k: 3 * v for k, v in per.items()}
+    assert rec["conv_bound_ms"] == 1.5 and rec["leaves_differing"] == []
+
+
+def test_cell_options_name_and_size_a_host_fed_cell():
+    """A data-parallel cell's fifth entry gives it flags and steps of its
+    own: phase 11's cells are named by method and flag, take one step and
+    expect one step's launches; phase 8's keep their method's name."""
+    uamt, svc = chip_smoke.DD_HOST_CELLS
+    assert chip_smoke.cell_key(uamt) == "uamt/device_data=False"
+    assert chip_smoke.cell_key(svc) == "scribblevc/device_data=False"
+    assert chip_smoke.cell_steps(uamt) == 1
+    assert chip_smoke.DD_HOST_CELLS == tuple(map(
+        chip_smoke.host_fed, chip_smoke.DD_DP_CELLS))
+    plain = chip_smoke.DP_CELLS[0]
+    assert chip_smoke.cell_key(plain) == plain[0]
+    assert chip_smoke.cell_steps(plain) == chip_smoke.DP_STEPS
+    assert chip_smoke.dp_expected(uamt, 1) == chip_smoke.dp_expected(
+        uamt[:4], 1) == chip_smoke.per_step_counts("unet", "uamt")
+
+
 def test_summary_leaves_out_the_ragged_shapes():
     """The ragged-shape records are no launch of a training path: they
     enter neither the kernels line's error nor its times."""
     base = {"ms": 1.0, "plain_ms": 1.0, "library_ms": 1.0, "bound_ms": 1.0,
             "bound_by": "bytes"}
+    step = [chip_smoke.N, 8, 8, 1, 1]  # a launch of the b24 step
     recs = []
     for kernel, dtype, extra in (
             ("conv3x3_fwd", "bfloat16", {"conv": "head"}),
             ("conv3x3_fwd_stats", "bfloat16", {"conv": "enc0.conv1"}),
             ("conv3x3_wgrad", "bfloat16", {"conv": "head"}),
+            ("conv3x3_fwd", "float32", {"conv": "head", "shape": step}),
+            ("conv3x3_fwd_stats", "float32", {"conv": "enc0.conv1",
+                                               "shape": step}),
+            ("conv3x3_wgrad", "float32", {"conv": "head", "shape": step}),
             ("augment", "float32+int32", {}),
             ("augment_s2l", "float32+int32+float32x4", {"case": "path"}),
             ("gated_crf", "float32", {"role": "path"}),
             ("maxpool_fwd", "bfloat16", {"pool": "pool0"}),
             ("maxpool_bwd", "bfloat16", {"pool": "pool0"})):
+        tf32 = {"library_tf32_ms": 1.0} if dtype == "float32" else {}
         recs.append({"kernel": kernel, "dtype": dtype, "max_abs_err": 0.1,
-                     **base, **extra})
+                     **base, **tf32, **extra})
         if kernel.startswith("conv3x3"):
             recs.append({"kernel": kernel, "dtype": dtype, "conv": "ragged",
                          "case": "ragged", "max_abs_err": 5.0,
-                         **base, "ms": 100.0})
+                         **base, **tf32, "ms": 100.0})
     launches = {k: 1 for d in chip_smoke._counters() for k in d}
-    for row in chip_smoke.summarize(recs, launches):
+    rows = chip_smoke.summarize(recs, launches, launches)
+    assert len(rows) == 11
+    for row in rows:
         assert row["max_abs_err"] == 0.1 and row["ms"] == 1.0
 
 
@@ -1019,19 +1203,23 @@ DP_WIDTHS = {"features": (4, 8, 8, 16, 16), "scribblevc": SVC_NARROW}
 
 def test_data_parallel_phase_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
     """Phase 8 on the CPU at 64x64 with narrow models and small batches:
-    (a) two gloo ranks on each cell, every step within dp_compare's
-    tolerances of the single process from the same state and the ranks
-    bit-equal; (b) a group of one (gloo here) bit for bit the run with no
+    (a) two gloo ranks on each cell (and, in the same group, a host-fed
+    cell of its own flags and steps, as phase 11's), every step within
+    dp_compare's tolerances of the single process from the same state and
+    the ranks bit-equal; (b) a group of one (gloo here) bit for bit the run with no
     group, its collectives counted; (c) recorded as not run."""
     monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
     cells = [chip_smoke.dp_cell(m, b) for m, b in (
         ("fully_supervised", 4), ("dmpls", 2), ("uamt", 4), ("s2l", 4),
         ("scribblevc", 6))]
+    host = (chip_smoke.host_fed(chip_smoke.dp_cell("uamt", 4)),)
     out = chip_smoke.dp_phase(0, "cpu", dev="cpu", hw=64, cells=cells,
                               widths=DP_WIDTHS, nccl_batch=4,
-                              nccl_dtype="float32")
+                              nccl_dtype="float32", host_cells=host)
     two = out["two_ranks_gloo"]
-    assert list(two) == [c[0] for c in cells]
+    assert list(two) == [c[0] for c in cells] + ["uamt/device_data=False"]
+    assert two["uamt/device_data=False"]["diff"]["loss_rel"] < \
+        chip_smoke.DP_LOSS_RTOL
     for method, r in two.items():
         assert r["ranks_bit_equal"] and r["ranks"] == 2
         assert r["collectives_per_step"]["all_reduce"] > 0, method

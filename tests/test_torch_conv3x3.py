@@ -84,6 +84,36 @@ def test_stats_vjp_matches_pallas(c, o, h, w):
     _close(db, wdb, scaled=True)
 
 
+# (C, O, H, W) of the f32 kernels' wider tile families (32 and 64 outputs
+# a block, C over several 8-channel steps), among the shapes the Pallas
+# kernel takes (tests/test_banded_pallas.py)
+F32_FAMILIES = [
+    (32, 64, 32, 32),
+    (64, 32, 32, 32),
+    (128, 64, 8, 16),
+]
+
+
+@pytest.mark.parametrize("c,o,h,w", F32_FAMILIES)
+def test_f32_families_match_pallas(c, o, h, w):
+    """The plain f32 versions that the card holds the f32 kernels to
+    (chip_smoke's check_conv) against the JAX package's conv with moments
+    and its VJP, at the kernels' wider tile families."""
+    x, k, b, gy, gs1, gs2 = _inputs(c, o, h, w, seed=3)
+    (wy, ws1, ws2), vjp = jax.vjp(
+        lambda x, k, b: banded_conv3x3_pallas_stats(x, k, b, interpret=True),
+        x, k, b)
+    y, s1, s2 = tconv.conv3x3_stats_plain(_t(x), _t(k), _t(b))
+    _close(y, wy)
+    _close(s1, ws1, scaled=True)
+    _close(s2, ws2, scaled=True)
+    wdx, wdk, _ = vjp((gy, gs1, gs2))
+    g = _t(gy) + _t(gs1) + 2.0 * y * _t(gs2)
+    w_rot = _t(k).flip(0, 1).transpose(2, 3).contiguous()
+    _close(tconv.conv3x3_plain(g, w_rot), wdx)
+    _close(tconv.conv3x3_wgrad_plain(_t(x), g), wdk, scaled=True)
+
+
 def test_plain_vjp_matches_pallas_without_stats():
     c, o, h, w = 16, 4, 8, 32
     x, k, b, gy, *_ = _inputs(c, o, h, w, seed=1)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """How often a torch.profiler window loses kernel records on the card, and
-whether chip_smoke's marked segment (``traced_window``) keeps them.
+whether chip_smoke's marked segments (``traced_windows``) keep them.
 
     python3 tools/trace_loss_probe.py [--windows 30] [--seed N]
 

@@ -5,11 +5,11 @@
 //
 // Replaces (wsl4mis_tpu/ops/pallas/banded_conv_pallas.py):
 //   _fwd_kernel        (:329) -> conv3x3_fwd_mma_kernel<BN, false> (bf16),
-//                                conv3x3_fwd_kernel<float, false>   (f32)
+//                                conv3x3_fwd_kernel<BO, false>      (f32)
 //   _fwd_stats_kernel  (:340) -> conv3x3_fwd_mma_kernel<BN, true>  (bf16),
-//                                conv3x3_fwd_kernel<float, true>    (f32)
+//                                conv3x3_fwd_kernel<BO, true>       (f32)
 //   _wgrad_kernel      (:377) -> conv3x3_wgrad_mma_kernel<BN>       (bf16),
-//                                conv3x3_wgrad_kernel<float, TC, TO> (f32)
+//                                conv3x3_wgrad_kernel<BO>           (f32)
 // The TPU kernels pack W*C into 128-lane bands so that the MXU sees dense
 // tiles; that layout exists for the TPU's matrix unit and is not carried
 // over. These kernels compute the same function directly on NHWC.
@@ -35,8 +35,8 @@
 //   the (TH+2) x 18 x 16 input halo and the 9 x 16 x BN weight slice, in a
 //   2-stage ring, so the next tile's copies overlap this tile's MMAs and
 //   epilogue. All 9 taps run from one halo as shifted ldmatrix views, so
-//   the halo is read once per BN outputs (16 times less than the SIMT
-//   kernel's 16-output blocks at O = 256). Each warp holds MT m16 tiles
+//   the halo is read once per BN outputs (16 times less than 16-output
+//   blocks would at O = 256). Each warp holds MT m16 tiles
 //   (tile rows) by up to 64 outputs of f32 accumulators. Halo rows are 32
 //   bytes (16 channels) with the two 16-byte halves swapped on bit 2 of
 //   the pixel index, and weight rows are padded by 16 bytes, so that every
@@ -64,10 +64,45 @@
 //   elements at a time through registers into the same shared layout;
 //   pixels outside the image are zero-filled and never stored or counted.
 //
-// f32 (compute_dtype="float32" and the card-vs-CPU reference check): the
-// SIMT kernels below, f32 FMAs on the CUDA cores. TF32 tensor cores would
-// keep 10 mantissa bits and break the f32 check's 1e-4 limit and the
-// gradient check's argument (PERF.md), so f32 stays off the tensor cores.
+// f32 (compute_dtype="float32" and the card-vs-CPU reference check): exact
+// f32 FFMA on the CUDA cores, no tensor-core operation. TF32 would keep 10
+// mantissa bits and break the f32 check's 1e-4 limit and the gradient
+// check's argument (PERF.md); only the order of summation differs from the
+// plain version. At 67 TFLOP/s of FFMA against 3.35 TB/s, a conv's 18*C*O
+// flops per pixel on 4*(C+O) bytes make every U-Net level bound by
+// operations but the stem (C = 1) and the head (O = 4): a fully_supervised
+// b24 step's forward, input and weight gradients are 419 GFLOP, 6.26 ms.
+// So the design keeps the FMA pipes fed from registers:
+// - Forward (and the input gradient), Y[p, o] = sum_(tap, c) X_tap[p, c]
+//   W[tap, c, o]: persistent blocks of 256 threads, each block owning BO
+//   outputs (the least of 16..128 >= O) and walking (1024/BO) x 16 pixel
+//   tiles, so the halo is read once per BO outputs. A thread holds the
+//   outer product of 8 pixels (8 columns of one tile row) by 8 outputs
+//   (4j..4j+3 and BO/2+4j..: a warp's float4 weight loads are contiguous):
+//   per 4 channels and tap row, 10 float4 halo loads and 24 float4 weight
+//   loads feed 768 FFMA. A step is one tile's 8-channel slice, the halo
+//   (pixel-major, rows padded to 20 mod 32 floats: a warp's rows fall on
+//   distinct banks) and the 9 x 8 x BO weights, copied by 16-byte cp.async
+//   in a 2-stage ring, so the next step's copies overlap this one's FMAs.
+//   The epilogue adds the f32 bias, stores each value once (float4 where
+//   O allows) and, with the moments, sums y and y*y of the stored values:
+//   over a thread's pixels, by shuffles over the warp's rows, into the
+//   warp's shared sums in tile order, and per block in warp order.
+// - Weight gradient, dK[(tap, c), o] = sum_p X_tap[p, c] G[p, o]: a block
+//   owns 16 input channels, BO = 16, 32 or 64 outputs and all 9 taps, over
+//   a range of 8 x 16 pixel tiles; each tile's 10 x 18 x 16 halo and its
+//   128 x BO slice of g are read once (cp.async ring) and the 9 taps are
+//   shifted views. A thread owns a tap row ky, a quad of channels and 8
+//   outputs (96 accumulators) and walks tile rows keeping a 3-pixel window
+//   of the halo row in registers: a float4 of x and two of g a pixel feed
+//   96 FFMA. Pixel coordinates come from the tile. The block's row groups
+//   are summed in shared memory in a fixed order, the blocks' ranges go to
+//   f32 partials (as many splits as fill one wave of resident blocks, no
+//   more partial bytes than x and g hold).
+// - Ragged shapes: a C or O that is no multiple of 4 (or an unaligned
+//   base) is staged 4 floats at a time through registers into the same
+//   layout; channels past C, outputs past O and pixels outside the image
+//   are zero-filled and never stored or counted.
 //
 // Numerics: products accumulate in f32, the bias is added in f32 and the
 // sum is rounded once to the output dtype. The moments are taken over the
@@ -86,345 +121,9 @@
 
 namespace {
 
-// ---- f32 SIMT kernels (compute_dtype="float32") ---------------------------
+// ---- helpers of both precisions ---------------------------------------------
 
-// ---- forward tiling ------------------------------------------------------
-constexpr int TW = 16;          // tile width in pixels: one thread per column
-constexpr int TY = 8;           // thread rows
-constexpr int PY = 2;           // output rows per thread
-constexpr int TH = TY * PY;     // tile height in pixels
-constexpr int OT = 16;          // output channels per block
-constexpr int CC = 16;          // input channels per shared-memory chunk
-constexpr int HS = TH + 2;      // halo rows
-constexpr int HW_ = TW + 2;     // halo columns
-constexpr int WS = 24;          // halo row stride: PY*WS = 48 puts thread rows
-                                // ty and ty+1 of a warp 16 banks apart
-constexpr int NT = TW * TY;     // threads per block
-
-// ---- weight-gradient tiling ----------------------------------------------
-constexpr int WG_THREADS = 256;  // 16 (output-channel lanes) x 16 (input)
-constexpr int WG_PP = 32;        // pixels staged per shared-memory chunk
-constexpr int WG_TARGET_BLOCKS = 2112;  // ~16 blocks per SM on 132 SMs
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-// One block: image n = blockIdx.z, a TH x TW pixel tile (blockIdx.x), and
-// OT output channels (blockIdx.y). With STATS, it also writes the sums of
-// y and y*y over its valid pixels to partial[(n*tiles + tile), {0,1}, o].
-// (The explicit minimum of one block an SM keeps ptxas from spilling the
-// STATS instantiation.)
-template <typename T, bool STATS>
-__global__ void __launch_bounds__(NT, 1)
-    conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ b, T* __restrict__ y,
-                       float* __restrict__ partial, int H, int W, int C,
-                       int O, int tiles_x) {
-  __shared__ float s_in[CC][HS][WS];
-  __shared__ __align__(16) float s_w[CC][9][OT];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TW;
-  const int ty = tid / TW;
-  const int tile = blockIdx.x;
-  const int y0 = (tile / tiles_x) * TH;
-  const int x0 = (tile % tiles_x) * TW;
-  const int o0 = blockIdx.y * OT;
-  const int n = blockIdx.z;
-  const T* xn = x + (size_t)n * H * W * C;
-
-  float acc[PY][OT];
-#pragma unroll
-  for (int r = 0; r < PY; ++r)
-#pragma unroll
-    for (int o = 0; o < OT; ++o) acc[r][o] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    const int cn = min(CC, C - c0);
-    // input halo of the tile, zero outside the image (SAME padding)
-    for (int i = tid; i < HS * HW_ * CC; i += NT) {
-      const int c = i % CC;
-      const int p = i / CC;
-      const int hx = p % HW_;
-      const int hy = p / HW_;
-      const int gy = y0 + hy - 1;
-      const int gx = x0 + hx - 1;
-      float v = 0.f;
-      if (c < cn && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = to_f32(xn[((size_t)gy * W + gx) * C + c0 + c]);
-      s_in[c][hy][hx] = v;
-    }
-    // weights w[ky][kx][c][o] of this chunk and channel tile
-    for (int i = tid; i < 9 * CC * OT; i += NT) {
-      const int o = i % OT;
-      const int rest = i / OT;
-      const int c = rest % CC;
-      const int tap = rest / CC;
-      float v = 0.f;
-      if (c < cn && o0 + o < O)
-        v = to_f32(w[((size_t)tap * C + c0 + c) * O + o0 + o]);
-      s_w[c][tap][o] = v;
-    }
-    __syncthreads();
-    for (int c = 0; c < cn; ++c) {
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        float col[PY + 2];
-#pragma unroll
-        for (int r = 0; r < PY + 2; ++r) col[r] = s_in[c][ty * PY + r][tx + kx];
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          const float4* wp =
-              reinterpret_cast<const float4*>(&s_w[c][ky * 3 + kx][0]);
-#pragma unroll
-          for (int q = 0; q < OT / 4; ++q) {
-            const float4 wv = wp[q];
-#pragma unroll
-            for (int r = 0; r < PY; ++r) {
-              const float xv = col[r + ky];
-              acc[r][4 * q + 0] = fmaf(xv, wv.x, acc[r][4 * q + 0]);
-              acc[r][4 * q + 1] = fmaf(xv, wv.y, acc[r][4 * q + 1]);
-              acc[r][4 * q + 2] = fmaf(xv, wv.z, acc[r][4 * q + 2]);
-              acc[r][4 * q + 3] = fmaf(xv, wv.w, acc[r][4 * q + 3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: bias in f32, one rounding to T, store; moments of the rounded
-  // y, one output channel at a time
-  const int ox = x0 + tx;
-  __shared__ float s_red[NT / 32][2][OT];
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-#pragma unroll
-  for (int o = 0; o < OT; ++o) {
-    float s1 = 0.f, s2 = 0.f;
-    const float bias = b != nullptr && o0 + o < O ? to_f32(b[o0 + o]) : 0.f;
-#pragma unroll
-    for (int r = 0; r < PY; ++r) {
-      const int oy = y0 + ty * PY + r;
-      if (oy < H && ox < W && o0 + o < O) {
-        const T v = from_f32<T>(acc[r][o] + bias);
-        y[(((size_t)n * H + oy) * W + ox) * O + o0 + o] = v;
-        if (STATS) {
-          const float vf = to_f32(v);
-          s1 += vf;
-          s2 += vf * vf;
-        }
-      }
-    }
-    if (STATS) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
-      if (lane == 0) {
-        s_red[warp][0][o] = s1;
-        s_red[warp][1][o] = s2;
-      }
-    }
-  }
-  if (STATS) {
-    __syncthreads();
-    if (tid < 2 * OT) {
-      const int k = tid / OT;
-      const int o = tid % OT;
-      if (o0 + o < O) {
-        float s = 0.f;
-#pragma unroll
-        for (int wi = 0; wi < NT / 32; ++wi) s += s_red[wi][k][o];
-        const size_t blk = (size_t)n * gridDim.x + tile;
-        partial[(blk * 2 + k) * O + o0 + o] = s;
-      }
-    }
-  }
-}
-
-// One block: one tap (ky, kx), CT = 16*TC input channels and OTL = 16*TO
-// output channels, over pixels [split*per_split, (split+1)*per_split) of the
-// flattened N*H*W range. Writes partial[split][tap][c][o] for its tile; the
-// caller sums over splits.
-template <typename T, int TC, int TO>
-__global__ void __launch_bounds__(WG_THREADS)
-    conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                         float* __restrict__ partial, int H, int W, int C,
-                         int O, int c_tiles, int o_tiles, long long M,
-                         long long per_split) {
-  constexpr int CT = 16 * TC;
-  constexpr int OTL = 16 * TO;
-  __shared__ float s_x[WG_PP][CT];
-  __shared__ float s_g[WG_PP][OTL];
-
-  int bid = blockIdx.x;
-  const int ot = bid % o_tiles;
-  bid /= o_tiles;
-  const int ct = bid % c_tiles;
-  const int tap = bid / c_tiles;
-  const int ky = tap / 3;
-  const int kx = tap % 3;
-  const int c0 = ct * CT;
-  const int o0 = ot * OTL;
-  const int split = blockIdx.y;
-  const long long m_begin = (long long)split * per_split;
-  const long long m_end = min(M, m_begin + per_split);
-  const int tx = threadIdx.x % 16;  // output-channel lane
-  const int ty = threadIdx.x / 16;  // input-channel lane
-  const int hw = H * W;
-
-  float acc[TC][TO];
-#pragma unroll
-  for (int i = 0; i < TC; ++i)
-#pragma unroll
-    for (int j = 0; j < TO; ++j) acc[i][j] = 0.f;
-
-  for (long long m0 = m_begin; m0 < m_end; m0 += WG_PP) {
-    for (int i = threadIdx.x; i < WG_PP * CT; i += WG_THREADS) {
-      const int c = i % CT;
-      const int p = i / CT;
-      const long long m = m0 + p;
-      float v = 0.f;
-      if (m < m_end && c0 + c < C) {
-        const int nn = (int)(m / hw);
-        const int rem = (int)(m - (long long)nn * hw);
-        const int sy = rem / W + ky - 1;
-        const int sx = rem % W + kx - 1;
-        if (sy >= 0 && sy < H && sx >= 0 && sx < W)
-          v = to_f32(x[(((size_t)nn * H + sy) * W + sx) * C + c0 + c]);
-      }
-      s_x[p][c] = v;
-    }
-    for (int i = threadIdx.x; i < WG_PP * OTL; i += WG_THREADS) {
-      const int o = i % OTL;
-      const int p = i / OTL;
-      const long long m = m0 + p;
-      float v = 0.f;
-      if (m < m_end && o0 + o < O) v = to_f32(g[(size_t)m * O + o0 + o]);
-      s_g[p][o] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < WG_PP; ++p) {
-      float xv[TC], gv[TO];
-#pragma unroll
-      for (int i = 0; i < TC; ++i) xv[i] = s_x[p][ty * TC + i];
-#pragma unroll
-      for (int j = 0; j < TO; ++j) gv[j] = s_g[p][tx * TO + j];
-#pragma unroll
-      for (int i = 0; i < TC; ++i)
-#pragma unroll
-        for (int j = 0; j < TO; ++j) acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TC; ++i) {
-    const int c = c0 + ty * TC + i;
-#pragma unroll
-    for (int j = 0; j < TO; ++j) {
-      const int o = o0 + tx * TO + j;
-      if (c < C && o < O)
-        partial[(((size_t)split * 9 + tap) * C + c) * O + o] = acc[i][j];
-    }
-  }
-}
-
-template <typename T, bool STATS>
-int launch_fwd(const void* x, const void* w, const void* b, void* y,
-               void* partial, int N, int H, int W, int C, int O,
-               void* stream) {
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, (O + OT - 1) / OT, N);
-  conv3x3_fwd_kernel<T, STATS><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y),
-      static_cast<float*>(partial), H, W, C, O, tiles_x);
-  return (int)cudaGetLastError();
-}
-
-int wgrad_tile(int ch) { return ch >= 64 ? 4 : (ch >= 32 ? 2 : 1); }
-
-long long wgrad_per_split(int N, int H, int W, int C, int O) {
-  const long long M = (long long)N * H * W;
-  const int c_tiles = (C + 16 * wgrad_tile(C) - 1) / (16 * wgrad_tile(C));
-  const int o_tiles = (O + 16 * wgrad_tile(O) - 1) / (16 * wgrad_tile(O));
-  const long long base = 9LL * c_tiles * o_tiles;
-  long long splits = (WG_TARGET_BLOCKS + base - 1) / base;
-  const long long most = (M + 255) / 256;  // keep >= 256 pixels per split
-  if (splits > most) splits = most;
-  if (splits < 1) splits = 1;
-  long long per = (M + splits - 1) / splits;
-  per = (per + WG_PP - 1) / WG_PP * WG_PP;
-  return per;
-}
-
-template <typename T, int TC, int TO>
-int launch_wgrad_tiled(const void* x, const void* g, void* partial, int N,
-                       int H, int W, int C, int O, int splits,
-                       long long per_split, void* stream) {
-  const int c_tiles = (C + 16 * TC - 1) / (16 * TC);
-  const int o_tiles = (O + 16 * TO - 1) / (16 * TO);
-  const dim3 grid(9 * c_tiles * o_tiles, splits);
-  conv3x3_wgrad_kernel<T, TC, TO><<<grid, WG_THREADS, 0,
-                                    (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<float*>(partial), H, W, C, O, c_tiles, o_tiles,
-      (long long)N * H * W, per_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int TC>
-int launch_wgrad_o(const void* x, const void* g, void* partial, int N, int H,
-                   int W, int C, int O, int splits, long long per,
-                   void* stream) {
-  switch (wgrad_tile(O)) {
-    case 4:
-      return launch_wgrad_tiled<T, TC, 4>(x, g, partial, N, H, W, C, O,
-                                          splits, per, stream);
-    case 2:
-      return launch_wgrad_tiled<T, TC, 2>(x, g, partial, N, H, W, C, O,
-                                          splits, per, stream);
-    default:
-      return launch_wgrad_tiled<T, TC, 1>(x, g, partial, N, H, W, C, O,
-                                          splits, per, stream);
-  }
-}
-
-template <typename T>
-int launch_wgrad(const void* x, const void* g, void* partial, int N, int H,
-                 int W, int C, int O, int splits, void* stream) {
-  const long long per = wgrad_per_split(N, H, W, C, O);
-  switch (wgrad_tile(C)) {
-    case 4:
-      return launch_wgrad_o<T, 4>(x, g, partial, N, H, W, C, O, splits, per,
-                                  stream);
-    case 2:
-      return launch_wgrad_o<T, 2>(x, g, partial, N, H, W, C, O, splits, per,
-                                  stream);
-    default:
-      return launch_wgrad_o<T, 1>(x, g, partial, N, H, W, C, O, splits, per,
-                                  stream);
-  }
-}
-
-
-// ---- bf16 tensor-core kernels ----------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kSms = 132;  // H100 SXM; only sizes the grids
+constexpr int kSms = 132;  // H100 SXM; sizes the bf16 grids
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -444,6 +143,621 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// Raise a kernel's dynamic shared-memory limit once per device; `done` is
+// the calling instantiation's own record.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64 || done[dev]) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+// ---- f32 kernels on the CUDA cores ------------------------------------------
+
+constexpr int F32_THREADS = 256;  // forward block
+constexpr int F32_CC = 8;         // input channels of a forward step
+
+__device__ __forceinline__ int clamp4(int v) {
+  return v < 0 ? 0 : v > 4 ? 4 : v;
+}
+
+// Four floats from src[0..valid), zeros after, into a 16-byte shared slot:
+// one cp.async where vec (then valid is 0 or 4), else through registers.
+__device__ __forceinline__ void stage4f(float* dst, const float* src,
+                                        int valid, bool vec) {
+  if (vec) {
+    cp_async16(smem_u32(dst), src, valid > 0);
+    return;
+  }
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid > 0) v.x = src[0];
+  if (valid > 1) v.y = src[1];
+  if (valid > 2) v.z = src[2];
+  if (valid > 3) v.w = src[3];
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[0..3] += a * lo, acc[4..7] += a * hi
+__device__ __forceinline__ void fma8(float (&acc)[8], float a,
+                                     const float4& lo, const float4& hi) {
+  acc[0] = fmaf(a, lo.x, acc[0]);
+  acc[1] = fmaf(a, lo.y, acc[1]);
+  acc[2] = fmaf(a, lo.z, acc[2]);
+  acc[3] = fmaf(a, lo.w, acc[3]);
+  acc[4] = fmaf(a, hi.x, acc[4]);
+  acc[5] = fmaf(a, hi.y, acc[5]);
+  acc[6] = fmaf(a, hi.z, acc[6]);
+  acc[7] = fmaf(a, hi.w, acc[7]);
+}
+
+// Whether rows of `ch` f32 channels from p can be copied 16 bytes at a
+// time: 4-channel groups, and a 16-byte aligned base.
+bool vec16f(const void* p, int ch) {
+  return ch % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Resident blocks an SM and SMs of the current device for a kernel with
+// `smem` bytes of dynamic shared memory. Each device's first answer is
+// kept (memo), so that a partials tensor sized from it and the launch that
+// fills it agree, given both are asked on one current device (the Python
+// wrappers size and launch inside one `on_device`); if the runtime cannot
+// answer, one block an SM.
+struct Residency {
+  int per_sm, sms;
+};
+
+template <typename K>
+Residency residency(K kernel, int threads, int smem, Residency (&memo)[64]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return {1, kSms};
+  Residency& r = memo[dev];
+  if (r.per_sm > 0) return r;
+  int per_sm = 0, sms = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      per_sm < 1 || sms < 1) {
+    cudaGetLastError();  // the launch reports what fails
+    per_sm = 1;
+    sms = kSms;
+  }
+  r = {per_sm, sms};
+  return r;
+}
+
+// Forward tiling for BO output channels per block: 256 threads, each
+// 8 pixels (one tile row, 8 columns) x 8 outputs (4*j + [0, 4) and
+// BO/2 + 4*j + [0, 4)). A warp holds BO/8 output groups x 256/BO tile rows
+// at one 8-column half, so the tile is 1024/BO rows x 16 columns.
+template <int BO>
+struct Fwd32Tile {
+  static constexpr int OG = BO / 8;           // output groups
+  static constexpr int RPW = 32 / OG;         // tile rows a warp
+  static constexpr int TH = 4 * RPW;          // tile rows
+  static constexpr int TW = 16;               // tile columns
+  static constexpr int HC = TW + 2;           // halo columns
+  // halo row stride in floats: 20 mod 32, so the float4 loads of 8
+  // consecutive rows fall on 8 distinct 4-bank groups
+  static constexpr int RS = HC * F32_CC + 4;
+  static constexpr int HALO = (TH + 2) * RS;  // floats
+  static constexpr int WGT = 9 * F32_CC * BO;  // rows (tap, c) of BO
+  static constexpr int STAGE = HALO + WGT;
+  static constexpr int NST = 2;               // pipeline stages
+  static constexpr int RED = 8 * 2 * BO;      // moment sums: warp x 2 x BO
+  static constexpr int SMEM = (NST * STAGE + RED + BO) * 4;
+};
+
+// A persistent block: output channels BO*blockIdx.y + [0, BO), and the
+// TH x 16 pixel tiles t = blockIdx.x + k*gridDim.x of the N*tiles_per_img
+// tiles. A step is one tile's 8-channel slice: its (TH+2) x 18 x 8 halo
+// (pixel-major, 8 channels a pixel) and the 9 x 8 x BO weight slice, in a
+// 2-stage cp.async ring, so the next step's copies overlap this one's
+// FMAs. With STATS it writes the sums of y and y*y over its valid pixels to
+// partial[blockIdx.x, {0,1}, o].
+template <int BO, bool STATS>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    conv3x3_fwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ b, float* __restrict__ y,
+                       float* __restrict__ partial, int H, int W, int C, int O,
+                       int tiles_x, int tiles_per_img, int tiles, int vec_x,
+                       int vec_o) {
+  using T = Fwd32Tile<BO>;
+  extern __shared__ __align__(16) float fsm[];
+  float* s_red = fsm + T::NST * T::STAGE;
+  float* s_bias = s_red + T::RED;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = lane % T::OG;                           // output group
+  const int row = (warp >> 1) * T::RPW + lane / T::OG;  // tile row
+  const int col = (warp & 1) * 8;                       // first tile column
+  const int o0 = blockIdx.y * BO;
+  const int chunks = (C + F32_CC - 1) / F32_CC;
+  const int my_tiles = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                       (int)gridDim.x;
+  const int steps = my_tiles * chunks;
+
+  for (int i = tid; i < T::RED; i += F32_THREADS) s_red[i] = 0.f;
+  for (int i = tid; i < BO; i += F32_THREADS)
+    s_bias[i] = b != nullptr && o0 + i < O ? b[o0 + i] : 0.f;
+
+  // step s: tile blockIdx.x + (s / chunks) * gridDim.x, channels
+  // 8 * (s % chunks) + [0, 8): its halo and the weights w[tap][c][o0..o0+BO)
+  // as rows (tap*8 + c) of BO outputs
+  auto load = [&](int stage, int s) {
+    const int t = blockIdx.x + (s / chunks) * gridDim.x;
+    const int c0 = F32_CC * (s % chunks);
+    const int n = t / tiles_per_img, rem = t % tiles_per_img;
+    const int y0 = (rem / tiles_x) * T::TH, x0 = (rem % tiles_x) * T::TW;
+    float* st = fsm + stage * T::STAGE;
+    const float* xn = x + (size_t)n * H * W * C;
+    for (int i = tid; i < (T::TH + 2) * T::HC * 2; i += F32_THREADS) {
+      const int q = i >> 1, h = i & 1;
+      const int hy = q / T::HC, hx = q % T::HC;
+      const int gy = y0 + hy - 1, gx = x0 + hx - 1, c = c0 + 4 * h;
+      const int valid =
+          gy >= 0 && gy < H && gx >= 0 && gx < W ? clamp4(C - c) : 0;
+      stage4f(st + hy * T::RS + hx * F32_CC + 4 * h,
+              valid > 0 ? xn + ((size_t)gy * W + gx) * C + c : xn, valid,
+              vec_x);
+    }
+    if (chunks == 1 && s >= T::NST) return;  // the stage holds them already
+    float* sw = st + T::HALO;
+    for (int i = tid; i < 9 * F32_CC * (BO / 4); i += F32_THREADS) {
+      const int pc = i % (BO / 4), r = i / (BO / 4);
+      const int c = c0 + r % F32_CC, o = o0 + 4 * pc;
+      const int valid = c < C ? clamp4(O - o) : 0;
+      stage4f(sw + r * BO + 4 * pc,
+              valid > 0 ? w + ((size_t)(r / F32_CC) * C + c) * O + o : w,
+              valid, vec_o);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+
+  for (int s = 0; s < T::NST - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    // refill the stage that step s-1 read (the barrier below step s-1's
+    // FMAs has passed), then wait for step s's own copies
+    if (s + T::NST - 1 < steps)
+      load((s + T::NST - 1) % T::NST, s + T::NST - 1);
+    cp_async_commit();
+    cp_async_wait<T::NST - 1>();
+    __syncthreads();
+    const float* st = fsm + (s % T::NST) * T::STAGE;
+    const float* hb = st + row * T::RS + col * F32_CC;
+    const float* wb = st + T::HALO + 4 * j;
+    const int cn = C - F32_CC * (s % chunks);  // channels left (the stem: 1)
+#pragma unroll 1
+    for (int c4 = 0; c4 < F32_CC && c4 < cn; c4 += 4) {
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        // halo row (row + ky), columns col .. col + 9, channels c4 .. c4+3
+        float4 xv[10];
+#pragma unroll
+        for (int i = 0; i < 10; ++i)
+          xv[i] = ld4(hb + ky * T::RS + i * F32_CC + c4);
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci) {
+            const float* wr = wb + ((ky * 3 + kx) * F32_CC + c4 + ci) * BO;
+            const float4 lo = ld4(wr), hi = ld4(wr + BO / 2);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              fma8(acc[i], part(xv[i + kx], ci), lo, hi);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (s % chunks != chunks - 1) continue;
+
+    // epilogue of the tile: bias in f32, one store a value; the moments of
+    // the stored values, summed over the warp's rows by shuffles and added
+    // to the warp's own shared sums in tile order
+    const int t = blockIdx.x + (s / chunks) * gridDim.x;
+    const int n = t / tiles_per_img, rem = t % tiles_per_img;
+    const int oy = (rem / tiles_x) * T::TH + row;
+    const int ox0 = (rem % tiles_x) * T::TW + col;
+    float* yrow = y + ((size_t)n * H + oy) * W * O;
+    float s1[8], s2[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ol = hh * (BO / 2) + 4 * j, o = o0 + ol;
+      const float4 bias = ld4(s_bias + ol);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = make_float4(
+            acc[i][4 * hh] + bias.x, acc[i][4 * hh + 1] + bias.y,
+            acc[i][4 * hh + 2] + bias.z, acc[i][4 * hh + 3] + bias.w);
+        const bool in = oy < H && ox0 + i < W;
+        if (in && o < O) {
+          float* dst = yrow + (size_t)(ox0 + i) * O + o;
+          if (vec_o) {
+            *reinterpret_cast<float4*>(dst) = v;
+          } else {
+            dst[0] = v.x;
+            if (o + 1 < O) dst[1] = v.y;
+            if (o + 2 < O) dst[2] = v.z;
+            if (o + 3 < O) dst[3] = v.w;
+          }
+        }
+        if (STATS && in) {  // outputs past O are 0 and never written out
+          s1[4 * hh] += v.x;
+          s1[4 * hh + 1] += v.y;
+          s1[4 * hh + 2] += v.z;
+          s1[4 * hh + 3] += v.w;
+          s2[4 * hh] += v.x * v.x;
+          s2[4 * hh + 1] += v.y * v.y;
+          s2[4 * hh + 2] += v.z * v.z;
+          s2[4 * hh + 3] += v.w * v.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    if (STATS) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int off = T::OG; off < 32; off <<= 1) {
+          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
+          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
+        }
+      if (lane < T::OG) {  // this lane alone owns these sums of its warp
+        float* rp = s_red + warp * 2 * BO;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ol = (e >> 2) * (BO / 2) + 4 * j + (e & 3);
+          rp[ol] += s1[e];
+          rp[BO + ol] += s2[e];
+        }
+      }
+    }
+  }
+
+  if (!STATS) return;
+  __syncthreads();
+  for (int i = tid; i < 2 * BO; i += F32_THREADS) {
+    const int k = i / BO, ol = i % BO;
+    if (o0 + ol < O) {
+      float sum = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < F32_THREADS / 32; ++wi)
+        sum += s_red[(wi * 2 + k) * BO + ol];
+      partial[((size_t)blockIdx.x * 2 + k) * O + o0 + ol] = sum;
+    }
+  }
+}
+
+// Weight-gradient tiling for BO output channels per block: 192 threads,
+// each one tap row ky (its 3 taps kx), one quad of the block's 16 input
+// channels and 8 outputs (as the forward's), over the tile rows of its row
+// group (rows rg, rg + RG, ...): 3 x 4 x 8 accumulators.
+template <int BO>
+struct Wgrad32Tile {
+  static constexpr int OG = BO / 8;           // output groups
+  static constexpr int PER_RG = 3 * 4 * OG;   // threads of a row group
+  static constexpr int THREADS = 192;
+  static constexpr int RG = THREADS / PER_RG;  // 2, 4, 8 for BO 64, 32, 16
+  static constexpr int TH = 8, TW = 16;        // pixel tile
+  // halo row stride in floats: 16 mod 32, so that two halo rows' channel
+  // quads fall on disjoint banks
+  static constexpr int XRS = (TW + 2) * 16 + 16;
+  static constexpr int HALO = (TH + 2) * XRS;
+  static constexpr int GRS = TW * BO + 16;  // g tile-row stride, floats
+  static constexpr int STAGE = HALO + TH * GRS;
+  static constexpr int NST = BO == 64 ? 2 : 3;  // pipeline stages
+  static constexpr int RED = 9 * 16 * BO;
+  static constexpr int SMEM = (NST * STAGE > RED ? NST * STAGE : RED) * 4;
+};
+
+// One block: input channels 16*(blockIdx.x / o_tiles) + [0, 16), outputs
+// BO*(blockIdx.x % o_tiles) + [0, BO), all 9 taps, pixel tiles
+// [blockIdx.y * per_split, ...) of the N * tiles_per_img 8 x 16 tiles. A
+// step is one tile's 10 x 18 x 16 halo and its 128 x BO slice of g, each
+// read once in a cp.async ring; a thread walks a tile row keeping a
+// 3-pixel window of the halo row in registers (one new float4 a pixel).
+// Writes partial[blockIdx.y][tap][c][o] for its (c, o) range.
+template <int BO>
+__global__ void __launch_bounds__(Wgrad32Tile<BO>::THREADS, 1)
+    conv3x3_wgrad_kernel(const float* __restrict__ x,
+                         const float* __restrict__ g,
+                         float* __restrict__ partial, int H, int W, int C,
+                         int O, int o_tiles, int tiles_x, int tiles_per_img,
+                         int tiles, int per_split, int vec_x, int vec_o) {
+  using T = Wgrad32Tile<BO>;
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x;
+  const int j = tid % T::OG, cq = (tid / T::OG) % 4;
+  const int ky = (tid / (4 * T::OG)) % 3, rg = tid / T::PER_RG;
+  const int c0 = (blockIdx.x / o_tiles) * 16;
+  const int o0 = (blockIdx.x % o_tiles) * BO;
+  const int t_begin = blockIdx.y * per_split;
+  const int t_end = min(tiles, t_begin + per_split);
+
+  // one stage: tile t's halo (channels c0..c0+15) and its 128 x BO slice
+  // of g as tile rows of 16 pixels x BO outputs
+  auto load = [&](int stage, int t) {
+    float* s = fsm + stage * T::STAGE;
+    const int n = t / tiles_per_img, rem = t % tiles_per_img;
+    const int y0 = (rem / tiles_x) * T::TH, x0 = (rem % tiles_x) * T::TW;
+    const float* xn = x + (size_t)n * H * W * C;
+    for (int i = tid; i < (T::TH + 2) * (T::TW + 2) * 4; i += T::THREADS) {
+      const int q = i >> 2, h = i & 3;
+      const int hy = q / (T::TW + 2), hx = q % (T::TW + 2);
+      const int gy = y0 + hy - 1, gx = x0 + hx - 1, c = c0 + 4 * h;
+      const int valid =
+          gy >= 0 && gy < H && gx >= 0 && gx < W ? clamp4(C - c) : 0;
+      stage4f(s + hy * T::XRS + hx * 16 + 4 * h,
+              valid > 0 ? xn + ((size_t)gy * W + gx) * C + c : xn, valid,
+              vec_x);
+    }
+    const float* gn = g + (size_t)n * H * W * O;
+    float* sg = s + T::HALO;
+    for (int i = tid; i < T::TH * T::TW * (BO / 4); i += T::THREADS) {
+      const int pc = i % (BO / 4), p = i / (BO / 4);
+      const int py = p / T::TW, px = p % T::TW;
+      const int gy = y0 + py, gx = x0 + px, o = o0 + 4 * pc;
+      const int valid = gy < H && gx < W ? clamp4(O - o) : 0;
+      stage4f(sg + py * T::GRS + px * BO + 4 * pc,
+              valid > 0 ? gn + ((size_t)gy * W + gx) * O + o : gn, valid,
+              vec_o);
+    }
+  };
+
+  float acc[3][4][8];  // [kx][channel of the quad][output]
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[kx][ci][e] = 0.f;
+
+  for (int k = 0; k < T::NST - 1; ++k) {
+    if (t_begin + k < t_end) load(k, t_begin + k);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k = t - t_begin;
+    if (t + T::NST - 1 < t_end)
+      load((k + T::NST - 1) % T::NST, t + T::NST - 1);
+    cp_async_commit();
+    cp_async_wait<T::NST - 1>();
+    __syncthreads();
+    const float* st = fsm + (k % T::NST) * T::STAGE;
+    const float* hb = st + ky * T::XRS + 4 * cq;
+    const float* gb = st + T::HALO + 4 * j;
+#pragma unroll 1
+    for (int r = rg; r < T::TH; r += T::RG) {
+      // halo row r + ky against g's tile row r: pixel px meets the halo
+      // pixels px + kx, kx = 0..2
+      const float* xr = hb + r * T::XRS;
+      const float* gr = gb + r * T::GRS;
+      float4 xa = ld4(xr), xb = ld4(xr + 16);
+#pragma unroll
+      for (int px = 0; px < T::TW; ++px) {
+        const float4 xc = ld4(xr + (px + 2) * 16);
+        const float4 lo = ld4(gr + px * BO), hi = ld4(gr + px * BO + BO / 2);
+#pragma unroll
+        for (int ci = 0; ci < 4; ++ci) {
+          fma8(acc[0][ci], part(xa, ci), lo, hi);
+          fma8(acc[1][ci], part(xb, ci), lo, hi);
+          fma8(acc[2][ci], part(xc, ci), lo, hi);
+        }
+        xa = xb;
+        xb = xc;
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // the groups still open hold no copy
+  __syncthreads();
+
+  // sum the row groups in shared memory, group 0 first
+  float* red = fsm;  // [tap][16][BO]
+  for (int s = 0; s < T::RG; ++s) {
+    if (rg == s) {
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int ci = 0; ci < 4; ++ci)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int o = (e >> 2) * (BO / 2) + 4 * j + (e & 3);
+            float* p = red + ((ky * 3 + kx) * 16 + 4 * cq + ci) * BO + o;
+            *p = s == 0 ? acc[kx][ci][e] : *p + acc[kx][ci][e];
+          }
+    }
+    __syncthreads();
+  }
+  float* out = partial + (size_t)blockIdx.y * 9 * C * O;
+  for (int i = tid; i < T::RED; i += T::THREADS) {
+    const int o = i % BO, c = (i / BO) % 16, tap = i / (16 * BO);
+    if (c0 + c < C && o0 + o < O)
+      out[((size_t)tap * C + c0 + c) * O + o0 + o] = red[i];
+  }
+}
+
+// ---- f32 launchers ---------------------------------------------------------
+
+// Output channels per f32 forward block: the least of 16/32/64/128 >= O.
+int fwd32_bo(int O) { return O <= 16 ? 16 : O <= 32 ? 32 : O <= 64 ? 64 : 128; }
+
+// The f32 forward's pixel tiles and its persistent grid: as many blocks as
+// can be resident, shared among the output blocks, never more than there
+// are tiles.
+struct Fwd32Plan {
+  int tiles_x, tiles_per_img, tiles, blocks;
+};
+
+template <int BO, bool STATS>
+Fwd32Plan fwd32_plan(int N, int H, int W, int O) {
+  using T = Fwd32Tile<BO>;
+  static Residency memo[64] = {};
+  const Residency r = residency(conv3x3_fwd_kernel<BO, STATS>, F32_THREADS,
+                                T::SMEM, memo);
+  Fwd32Plan p;
+  p.tiles_x = (int)cdiv(W, T::TW);
+  p.tiles_per_img = p.tiles_x * (int)cdiv(H, T::TH);
+  p.tiles = N * p.tiles_per_img;
+  const int per_o = (int)cdiv((long long)r.per_sm * r.sms, cdiv(O, BO));
+  p.blocks = p.tiles < per_o ? p.tiles : per_o;
+  return p;
+}
+
+template <int BO, bool STATS>
+int launch_fwd32_bo(const void* x, const void* w, const void* b, void* y,
+                    void* partial, int N, int H, int W, int C, int O,
+                    void* stream) {
+  const Fwd32Plan p = fwd32_plan<BO, STATS>(N, H, W, O);
+  const dim3 grid(p.blocks, (int)cdiv(O, BO));
+  conv3x3_fwd_kernel<BO, STATS><<<grid, F32_THREADS, Fwd32Tile<BO>::SMEM,
+                                  (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(y),
+      static_cast<float*>(partial), H, W, C, O, p.tiles_x, p.tiles_per_img,
+      p.tiles, vec16f(x, C), vec16f(w, O) && vec16f(y, O));
+  return (int)cudaGetLastError();
+}
+
+template <bool STATS>
+int launch_fwd32(const void* x, const void* w, const void* b, void* y,
+                 void* partial, int N, int H, int W, int C, int O,
+                 void* stream) {
+  switch (fwd32_bo(O)) {
+    case 16:
+      return launch_fwd32_bo<16, STATS>(x, w, b, y, partial, N, H, W, C, O,
+                                        stream);
+    case 32:
+      return launch_fwd32_bo<32, STATS>(x, w, b, y, partial, N, H, W, C, O,
+                                        stream);
+    case 64:
+      return launch_fwd32_bo<64, STATS>(x, w, b, y, partial, N, H, W, C, O,
+                                        stream);
+    default:
+      return launch_fwd32_bo<128, STATS>(x, w, b, y, partial, N, H, W, C, O,
+                                         stream);
+  }
+}
+
+// Rows of the f32 moments' partials: the stats forward's blocks.
+int fwd32_stats_rows(int N, int H, int W, int O) {
+  switch (fwd32_bo(O)) {
+    case 16:
+      return fwd32_plan<16, true>(N, H, W, O).blocks;
+    case 32:
+      return fwd32_plan<32, true>(N, H, W, O).blocks;
+    case 64:
+      return fwd32_plan<64, true>(N, H, W, O).blocks;
+    default:
+      return fwd32_plan<128, true>(N, H, W, O).blocks;
+  }
+}
+
+int wgrad32_bo(int O) { return O <= 16 ? 16 : O <= 32 ? 32 : 64; }
+
+// How the f32 weight gradient splits the N * tiles_per_img pixel tiles:
+// one wave of resident blocks where there are tiles for it, but no more
+// partial bytes (splits * 9*C*O) than the bytes of x and g.
+struct Wgrad32Plan {
+  int tiles_x, tiles_per_img, tiles, per_split, splits;
+};
+
+template <int BO>
+Wgrad32Plan wgrad32_plan_bo(int N, int H, int W, int C, int O) {
+  using T = Wgrad32Tile<BO>;
+  static Residency memo[64] = {};
+  const Residency r = residency(conv3x3_wgrad_kernel<BO>, T::THREADS,
+                                T::SMEM, memo);
+  Wgrad32Plan p;
+  p.tiles_x = (int)cdiv(W, T::TW);
+  p.tiles_per_img = p.tiles_x * (int)cdiv(H, T::TH);
+  p.tiles = N * p.tiles_per_img;
+  const long long base = cdiv(C, 16) * cdiv(O, BO);
+  long long splits = (long long)r.per_sm * r.sms / base;
+  const long long most = (long long)N * H * W * (C + O) / (9LL * C * O);
+  if (splits > most) splits = most;
+  if (splits > p.tiles) splits = p.tiles;
+  if (splits < 1) splits = 1;
+  p.per_split = (int)cdiv(p.tiles, splits);
+  p.splits = (int)cdiv(p.tiles, p.per_split);
+  return p;
+}
+
+Wgrad32Plan wgrad32_plan(int N, int H, int W, int C, int O) {
+  switch (wgrad32_bo(O)) {
+    case 16:
+      return wgrad32_plan_bo<16>(N, H, W, C, O);
+    case 32:
+      return wgrad32_plan_bo<32>(N, H, W, C, O);
+    default:
+      return wgrad32_plan_bo<64>(N, H, W, C, O);
+  }
+}
+
+template <int BO>
+int launch_wgrad32_bo(const void* x, const void* g, void* partial, int N,
+                      int H, int W, int C, int O, void* stream) {
+  using T = Wgrad32Tile<BO>;
+  const Wgrad32Plan p = wgrad32_plan_bo<BO>(N, H, W, C, O);
+  const int o_tiles = (int)cdiv(O, BO);
+  const dim3 grid((int)cdiv(C, 16) * o_tiles, p.splits);
+  conv3x3_wgrad_kernel<BO><<<grid, T::THREADS, T::SMEM,
+                             (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<float*>(partial), H, W, C, O, o_tiles, p.tiles_x,
+      p.tiles_per_img, p.tiles, p.per_split, vec16f(x, C), vec16f(g, O));
+  return (int)cudaGetLastError();
+}
+
+int launch_wgrad32(const void* x, const void* g, void* partial, int N, int H,
+                   int W, int C, int O, void* stream) {
+  switch (wgrad32_bo(O)) {
+    case 16:
+      return launch_wgrad32_bo<16>(x, g, partial, N, H, W, C, O, stream);
+    case 32:
+      return launch_wgrad32_bo<32>(x, g, partial, N, H, W, C, O, stream);
+    default:
+      return launch_wgrad32_bo<64>(x, g, partial, N, H, W, C, O, stream);
+  }
+}
+
+// ---- bf16 tensor-core kernels ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
                                         uint32_t& r1, uint32_t& r2,
@@ -864,22 +1178,6 @@ __global__ void __launch_bounds__(WgradTile<BN>::THREADS,
 
 // ---- bf16 launchers --------------------------------------------------------
 
-inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-
-// Raise a kernel's dynamic shared-memory limit once per device; `done` is
-// the calling instantiation's own record.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool (&done)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64 || done[dev]) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  done[dev] = err == cudaSuccess;
-  return err;
-}
-
 // Whether rows of `ch` bf16 channels from p can be copied 16 bytes at a
 // time: 8-channel groups, and a 16-byte aligned base.
 bool vec16(const void* p, int ch) {
@@ -1029,20 +1327,21 @@ int launch_wgrad_bf16(const void* x, const void* g, void* partial, int N,
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (tensor-core kernels);
+// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core
+// kernels);
 // x, w, b and y all of that type. b may be null (no bias).
 int conv3x3_fwd(const void* x, const void* w, const void* b, void* y, int N,
                 int H, int W, int C, int O, int dtype, void* stream) {
   if (dtype == 1)
     return launch_fwd_bf16<false>(x, w, b, y, nullptr, N, H, W, C, O, stream);
-  return launch_fwd<float, false>(x, w, b, y, nullptr, N, H, W, C, O, stream);
+  return launch_fwd32<false>(x, w, b, y, nullptr, N, H, W, C, O, stream);
 }
 
 // Rows of the (rows, 2, O) f32 partials tensor conv3x3_fwd_stats writes:
-// one per block (bf16) or per block's pixel tile (f32).
+// one per persistent block.
 int conv3x3_stats_rows(int N, int H, int W, int O, int dtype) {
   if (dtype == 1) return fwd_plan(N, H, W, O).blocks;
-  return N * ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
+  return fwd32_stats_rows(N, H, W, O);
 }
 
 int conv3x3_fwd_stats(const void* x, const void* w, const void* b, void* y,
@@ -1050,24 +1349,21 @@ int conv3x3_fwd_stats(const void* x, const void* w, const void* b, void* y,
                       int dtype, void* stream) {
   if (dtype == 1)
     return launch_fwd_bf16<true>(x, w, b, y, partial, N, H, W, C, O, stream);
-  return launch_fwd<float, true>(x, w, b, y, partial, N, H, W, C, O, stream);
+  return launch_fwd32<true>(x, w, b, y, partial, N, H, W, C, O, stream);
 }
 
 // Number of pixel-range splits S of the (S, 3, 3, C, O) f32 partials
 // tensor conv3x3_wgrad writes.
 int conv3x3_wgrad_splits(int N, int H, int W, int C, int O, int dtype) {
   if (dtype == 1) return wgrad_plan(N, H, W, C, O).splits;
-  const long long M = (long long)N * H * W;
-  const long long per = wgrad_per_split(N, H, W, C, O);
-  return (int)((M + per - 1) / per);
+  return wgrad32_plan(N, H, W, C, O).splits;
 }
 
 int conv3x3_wgrad(const void* x, const void* g, void* partial, int N, int H,
                   int W, int C, int O, int dtype, void* stream) {
   if (dtype == 1)
     return launch_wgrad_bf16(x, g, partial, N, H, W, C, O, stream);
-  return launch_wgrad<float>(x, g, partial, N, H, W, C, O,
-                             conv3x3_wgrad_splits(N, H, W, C, O, 0), stream);
+  return launch_wgrad32(x, g, partial, N, H, W, C, O, stream);
 }
 
 const char* wsl_cuda_error_string(int err) {

@@ -38,9 +38,11 @@ _I = ctypes.c_int
 
 # name -> (source file, extra nvcc flags, {function: argtypes})
 LIBRARIES = {
+    # -split-compile=0: the f32 kernels' unrolled bodies took ptxas most
+    # of a minute in one thread; split over the CPUs, about 15 s
     "conv3x3": (
         "conv3x3.cu",
-        [],
+        ["-split-compile=0"],
         {
             "conv3x3_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
             "conv3x3_stats_rows": [_I, _I, _I, _I, _I],

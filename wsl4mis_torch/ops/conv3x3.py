@@ -4,7 +4,8 @@ Port of the function of ``wsl4mis_tpu/ops/pallas/banded_conv_pallas.py``
 (``banded_conv3x3_pallas`` and ``banded_conv3x3_pallas_stats`` with their
 custom VJPs, :609-686), not of its TPU band layout. Kernels live in
 ``csrc/conv3x3.cu``: bf16 on the tensor cores (mma.sync implicit GEMMs),
-f32 on the CUDA cores (SIMT FMA; see the source's note for why).
+f32 in exact f32 FFMA on the CUDA cores (register-blocked implicit GEMMs
+fed by cp.async rings; no TF32: see the source's note for why).
 
 * ``conv3x3_fwd``: y = conv(x, w) + b, f32 accumulate, one rounding to
   the input dtype. It is also the input gradient: dx = conv(g, rot(w))
@@ -135,9 +136,12 @@ def _wgrad_kernel(x, g):
     o = g.shape[3]
     lib = _build.lib("conv3x3")
     code = _DTYPE_CODE[x.dtype]
-    part = torch.empty((lib.conv3x3_wgrad_splits(n, h, wd, c, o, code), 3,
-                        3, c, o), dtype=torch.float32, device=x.device)
     with _build.on_device(x):
+        # The split count and the launch read one current device, so the
+        # partials and the grid that fills them agree.
+        part = torch.empty((lib.conv3x3_wgrad_splits(n, h, wd, c, o, code),
+                            3, 3, c, o), dtype=torch.float32,
+                           device=x.device)
         err = lib.conv3x3_wgrad(
             x.data_ptr(), g.data_ptr(), part.data_ptr(), n, h, wd, c, o,
             code, _build.stream(x))
