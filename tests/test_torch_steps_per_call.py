@@ -233,3 +233,11 @@ def test_profile_steps_writes_a_trace(tmp_path, monkeypatch, k):
         trace = json.load(f)
     assert any(e.get("name") == "aten::linear"
                for e in trace["traceEvents"])
+    # the window's spans beside it: its calls' feeds (2 steps), and at K = 1
+    # the log line's sync that ends its first call
+    with open(os.path.join(os.path.dirname(path), "spans.json")) as f:
+        spans = json.load(f)
+    assert spans["trainer.feed"]["count"] == 2
+    assert spans.get("trainer.sync", {"count": 0})["count"] == (k == 1)
+    for row in spans.values():
+        assert row["ms_per_step"] == pytest.approx(row["total_ms"] / 2)

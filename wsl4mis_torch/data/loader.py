@@ -1,7 +1,8 @@
 """Batch iteration over RAM-cached datasets (port of
 ``wsl4mis_tpu/data/loader.py``): an epoch-shuffled index stream, its
 labeled + unlabeled pairing for the semi-supervised methods, and a
-background-thread prefetch."""
+background-thread prefetch (its span ``loader.batch``: each batch the
+thread takes from the stream)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Iterator
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
     """Background-thread prefetch of host batches."""
@@ -19,7 +22,12 @@ def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
 
     def worker():
         try:
-            for item in iterator:
+            it = iter(iterator)
+            while True:
+                with span("loader.batch"):
+                    item = next(it, sentinel)
+                if item is sentinel:
+                    return
                 q.put(item)
         finally:
             q.put(sentinel)

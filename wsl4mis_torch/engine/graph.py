@@ -39,6 +39,11 @@ counts that a step advances (``TrainState.host_counts``: the step, the
 optimizer's count, DAN's Adam count) must each move by one in the
 capture; they are put back after it and advanced after each replay.
 
+Spans (``utils.profiling.span``): ``captured.load`` and ``captured.replay``
+around each replay's loads and its launch with the host counts' advance,
+``captured.capture`` around a capture's warm-ups and capture (the
+interval ``capture_s`` times); none inside a captured region.
+
 A call ends bit-equal to the same steps run eagerly (chip_smoke phase 10):
 the same kernels on the same inputs and draws. The kernel wrappers'
 launch counters count the warm-ups and the captures, not the replays (a
@@ -55,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .methods.common import RNG_PURPOSES, rng_seeds
 from .state import TrainState
 
@@ -108,10 +114,13 @@ class CapturedStep:
             if key not in self.graphs:
                 self._capture(batch, key)
             g = self.graphs[key]
-            self._load(batch, g.rngs)
-            g.graph.replay()
-            counts = self.state.host_counts()
-            self.state.set_host_counts({k: v + 1 for k, v in counts.items()})
+            with span("captured.load"):
+                self._load(batch, g.rngs)
+            with span("captured.replay"):
+                g.graph.replay()
+                counts = self.state.host_counts()
+                self.state.set_host_counts({k: v + 1
+                                            for k, v in counts.items()})
             self.last = g
         return _clone(self.last.outputs)
 
@@ -145,6 +154,17 @@ class CapturedStep:
 
     def _capture(self, batch, key) -> None:
         t0 = time.perf_counter()
+        with span("captured.capture"):
+            self.graphs[key] = self._record(batch, key)
+        self.capture_s[key] = time.perf_counter() - t0
+        logging.info("captured step: variant %s captured at step %d in "
+                     "%.2f s (%d graph%s)", dict(key) or "(one)",
+                     self.state.step, self.capture_s[key], len(self.graphs),
+                     "s" if len(self.graphs) > 1 else "")
+
+    def _record(self, batch, key) -> _Graph:
+        """Warm-ups on a side stream, then the capture, ended by a
+        synchronize."""
         rngs = {name: torch.Generator(device=self.device)
                 for name in RNG_PURPOSES}
         counts = self.state.host_counts()
@@ -174,10 +194,5 @@ class CapturedStep:
             raise RuntimeError(f"captured step: the host counts moved by "
                                f"{moved}, not one update each")
         self.state.set_host_counts(counts)
-        self.graphs[key] = _Graph(graph, rngs, outputs)
         torch.cuda.synchronize(self.device)
-        self.capture_s[key] = time.perf_counter() - t0
-        logging.info("captured step: variant %s captured at step %d in "
-                     "%.2f s (%d graph%s)", dict(key) or "(one)",
-                     self.state.step, self.capture_s[key], len(self.graphs),
-                     "s" if len(self.graphs) > 1 else "")
+        return _Graph(graph, rngs, outputs)

@@ -33,7 +33,12 @@ happens. Every step keeps its
 (cfg.seed, step) draws, so a K-step run is bit-equal to the K = 1 run.
 ``cfg.profile_steps`` N > 0 writes a torch.profiler trace (Chrome JSON) of
 the steps from iteration 10 to 10 + N into ``{snapshot}/profile``, opened
-and closed where the JAX trainer's would be (at a call's boundary).
+and closed where the JAX trainer's would be (at a call's boundary), and
+beside it ``spans.json``: the count, ms and ms a step of each span
+(``utils.profiling.span``) the window recorded. The loop's spans:
+``trainer.feed`` (each batch taken from the feed), ``trainer.sync`` (the
+log line's read of the call's metrics, the sync that ends a call) and
+``trainer.hook`` (the host hook).
 
 ``cfg.resume`` continues from ``{snapshot}/latest_full.ckpt`` in either
 package's format (``utils.checkpoint.restore_train_state``), with the
@@ -65,7 +70,6 @@ import os
 import shutil
 
 import numpy as np
-import torch
 
 from .. import parallel
 from ..data.loader import prefetch
@@ -77,6 +81,7 @@ from ..utils.checkpoint import (
 )
 from ..utils.device import resolve_device
 from ..utils.logging_utils import Timer, setup_run_logging
+from ..utils.profiling import span, start_profile, stop_profile
 from .config import TrainConfig
 from .debug_nans import NanCheck
 from .graph import CapturedStep
@@ -197,25 +202,11 @@ class Trainer:
                                               self.bundle.aux)
         return metrics
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        profile_dir = os.path.join(self.snapshot_path, "profile")
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        logging.info("profiler trace written to %s", path)
+    def _stop_profile(self, prof, steps: int) -> None:
+        path = stop_profile(prof, os.path.join(self.snapshot_path,
+                                               "profile"), self.device, steps)
+        logging.info("profiler trace written to %s, its spans beside it",
+                     path)
 
     def _snapshot_code(self):
         """Copy the library into the run dir for provenance."""
@@ -300,20 +291,25 @@ class Trainer:
         prof = None
 
         while iter_num < cfg.max_iterations:
-            batches = [next(self.data_iter) for _ in range(self.multi)]
             if profiling and iter_num == 10:
-                prof = self._start_profile()
+                prof = start_profile(self.device)
+            batches = []
+            for _ in range(self.multi):
+                with span("trainer.feed"):
+                    batches.append(next(self.data_iter))
             metrics = self._call(batches, iter_num)
             iter_num += self.multi
             if prof is not None and iter_num == 10 + cfg.profile_steps:
-                self._stop_profile(prof)
+                self._stop_profile(prof, cfg.profile_steps)
                 prof = None
 
             if iter_num % self.image_every == 0:
                 self._images(metrics.get("vis"), iter_num)
 
             if iter_num % self.log_every == 0 and self.lead:
-                host = {k: float(v) for k, v in metrics.items() if k != "vis"}
+                with span("trainer.sync"):
+                    host = {k: float(v) for k, v in metrics.items()
+                            if k != "vis"}
                 lr = self.state.opt.schedule(iter_num)
                 self._scalar("info/lr", lr, iter_num)
                 for k, v in host.items():
@@ -351,12 +347,13 @@ class Trainer:
             # after the checkpoint, as the JAX trainer runs it: a checkpoint
             # of a hook iteration holds the state from before the hook
             if self.bundle.host_hook is not None:
-                self.bundle.host_hook(self.bundle, self.state, iter_num)
+                with span("trainer.hook"):
+                    self.bundle.host_hook(self.bundle, self.state, iter_num)
 
         if prof is not None:  # the run ended inside the window
             logging.warning("profile window open at the end (iteration %d "
                             "of 10 + %d)", iter_num, cfg.profile_steps)
-            self._stop_profile(prof)
+            self._stop_profile(prof, iter_num - 10)
         if self.writer is not None:
             self.writer.close()
         return "Training Finished!"

@@ -6,7 +6,10 @@ predictor's decision rule), and zoomed back (order 0) to the native
 resolution; per-class (dice, hd95) against the dense 3D label are averaged
 over the volumes (or NaN-averaged, with ScribbleVC's NaN conventions).
 Slices run in 64-slice chunks on the device; metrics stay on the host
-(scipy EDT).
+(scipy EDT). Spans (``utils.profiling.span``): ``val.pass`` around a
+pass, in it ``val.forward`` (a chunk's forward and decision enqueued) and
+``val.copy`` (its class map to the host, which waits for the card) a
+chunk, then ``val.zoom_back`` (the maps joined and zoomed back).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .metrics import calculate_metric_percase, calculate_metric_percase_nan
 
 
@@ -59,8 +63,11 @@ class VolumePredictor:
 
     @torch.no_grad()
     def _predict(self, x: torch.Tensor, variables: dict) -> np.ndarray:
-        out = self.model(x, train=False, **self.forward_kwargs, **variables)
-        return self.decision_fn(out).to(torch.int8).cpu().numpy()
+        with span("val.forward"):
+            pred = self.decision_fn(self.model(
+                x, train=False, **self.forward_kwargs, **variables))
+        with span("val.copy"):
+            return pred.to(torch.int8).cpu().numpy()
 
     def _zoom_back(self, pred: np.ndarray, h: int, w: int) -> np.ndarray:
         ph, pw = self.patch_size
@@ -95,12 +102,14 @@ class VolumePredictor:
         return chunks, depths, shapes
 
     def _run(self, chunks, depths, shapes, variables=None):
-        flat = np.concatenate([self._predict(x, variables or {})
-                               for x in chunks])
-        preds, off = [], 0
-        for (h, w), (d, dp) in zip(shapes, depths):
-            preds.append(self._zoom_back(flat[off:off + d], h, w))
-            off += dp
+        with span("val.pass"):
+            maps = [self._predict(x, variables or {}) for x in chunks]
+            with span("val.zoom_back"):
+                flat = np.concatenate(maps)
+                preds, off = [], 0
+                for (h, w), (d, dp) in zip(shapes, depths):
+                    preds.append(self._zoom_back(flat[off:off + d], h, w))
+                    off += dp
         return preds
 
     def predict_volumes(self, images, variables=None) -> list[np.ndarray]:
