@@ -30,7 +30,12 @@ failure:
    gradient at (B, 256, 256), radius 5, for B = 6 and 24 with the default
    descriptor, at a ragged 40x72 with the default descriptor at radius 3
    and 5 and with two descriptors, the xy features built from the
-   coordinates, and once with every feature read from memory). Off the
+   coordinates, and once with every feature read from memory; the fused
+   ConvBlock layer, ops.bn_act, train and eval mode, forward and backward,
+   at each of the 18 UNet BN layers' shapes at batch 24 (timed, repeated
+   bit for bit) and at each distinct shape at batch 12 and 6, with its
+   level's dropout on the encoder's first layer, and its eval forward at
+   64 and 32: see check_bn_act). Off the
    paths, the conv
    also runs in all four roles at the ragged shapes of
    tests/test_torch_conv3x3.py (batch 2) and at 32->16, 256x256, batch 1;
@@ -296,6 +301,9 @@ SRC_CONV = "wsl4mis_torch/csrc/conv3x3.cu"
 PALLAS_CONV = "wsl4mis_tpu/ops/pallas/banded_conv_pallas.py"
 SRC_POOL = "wsl4mis_torch/csrc/maxpool.cu"
 PALLAS_POOL = "wsl4mis_tpu/ops/pallas/maxpool_pallas.py"
+SRC_BN = "wsl4mis_torch/csrc/bn_act.cu"
+# the JAX package's BN, which XLA fuses with the LeakyReLU and dropout
+BN_REPLACES = "wsl4mis_tpu/models/norm.py:31"
 GCRF_RADIUS = 5
 # device function names of the port's kernels, as a trace shows them: every
 # __global__ of wsl4mis_torch/csrc (the conv's f32 CUDA-core kernels and its
@@ -305,9 +313,11 @@ PORT_KERNELS = ("conv3x3_fwd_kernel", "conv3x3_wgrad_kernel",
                 "augment_fill_kernel", "augment_kernel",
                 "augment_s2l_kernel",
                 "maxpool_fwd_kernel", "maxpool_bwd_kernel",
-                "gated_crf_kernel", "gated_crf_fold_kernel")
+                "gated_crf_kernel", "gated_crf_fold_kernel",
+                "bn_act_fwd_kernel", "bn_act_sums_kernel",
+                "bn_act_bwd_kernel")
 # the libraries whose ptxas report must show no spill
-NO_SPILL = ("conv3x3", "augment", "gated_crf")
+NO_SPILL = ("conv3x3", "augment", "gated_crf", "bn_act")
 # augment planes: the path's, no multiple of the tile, no multiple of 4
 AUG_PLANES = (256, 200, 54)
 # (C, O, H, W) of tests/test_torch_conv3x3.py: the stem (C = 1), the head's
@@ -437,6 +447,10 @@ def ulp_err(got, want):
     mag = torch.maximum(w.abs(), w.abs().max() * 2.0 ** -8)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(((g - w).abs() / ulp).max())
+
+
+def abs_err(got, want):
+    return float((got.double() - want.double()).abs().max())
 
 
 def rel_max(got, want):
@@ -789,6 +803,251 @@ def check_pool(name, c, h, dtype_name, n, ties, timed, backward=True,
     return recs
 
 
+# the fused ConvBlock layer (ops.bn_act): the conv-output cotangent's error
+# against the f64 version, bf16 in ulps (the final rounding's half ulp and
+# the f32 sums' rounding), f32 relative to the largest magnitude; the scale
+# and shift gradients' against f64, relative to the largest
+BN_COT_ULP = 1.0
+BN_COT_REL = 1e-5
+BN_PARAM_REL = 1e-4
+UNET_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
+
+
+def unet_bn_layers():
+    """(name, C, H, dropout) of the 18 UNet BN layers at 256x256: each
+    ConvBlock's two, the encoder's first with its level's dropout."""
+    f = FEATURES
+    out = []
+    for i, c in enumerate(f):
+        out += [(f"enc{i}.bn1", c, HW >> i, UNET_DROPOUT[i]),
+                (f"enc{i}.bn2", c, HW >> i, 0.0)]
+    for i, c in enumerate((f[3], f[2], f[1], f[0])):
+        out += [(f"up{i}.bn1", c, HW >> (3 - i), 0.0),
+                (f"up{i}.bn2", c, HW >> (3 - i), 0.0)]
+    return out
+
+
+def bn_inputs(n, h, c, dtype_name, drop, dev="cuda"):
+    """A BN layer's inputs at (n, h, h, c): y like a conv output and its f32
+    moments, the scale and shift, running statistics, the dropout's draw
+    (None without dropout) and an output cotangent g."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(c * 131 + h + n)
+    y = (torch.randn((n, h, h, c), generator=gen, device=dev) * 0.7
+         + 0.2).to(dt)
+    yf = y.float()
+    vec = [torch.randn((c,), generator=gen, device=dev) for _ in range(4)]
+    u = (torch.rand((n, h, h, c), generator=gen, device=dev) if drop
+         else None)
+    g = torch.randn((n, h, h, c), generator=gen, device=dev).to(dt)
+    return {"y": y, "s1": yf.sum((0, 1, 2)), "s2": (yf * yf).sum((0, 1, 2)),
+            "scale": 1 + 0.2 * vec[0], "shift": 0.1 * vec[1],
+            "mean": 0.1 * vec[2], "var": 1 + 0.1 * vec[3].abs(), "u": u,
+            "g": g, "n": n * h * h, "keep": 1.0 - drop}
+
+
+def bn_act_eager_grads(y, s1, s2, scale, shift, u, g, n, keep):
+    """The eager chain's backward as autograd ran it (FusedBatchNorm,
+    F.leaky_relu, the dropout, then _Conv3x3Stats' fold of the moments'
+    cotangents): (the conv-output cotangent, the conv bias gradient, d
+    scale, d shift)."""
+    import torch
+
+    from wsl4mis_torch.ops import bn_act as ba
+
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (y, s1, s2, scale, shift)]
+    ones = torch.ones_like(scale)
+    out, _, _ = ba.bn_act_fwd_plain(leaves[0], leaves[1:3], *leaves[3:],
+                                    ones, ones, u, n=n, keep=keep)
+    gy, gs1, gs2, gsc, gsh = torch.autograd.grad(out, leaves, g)
+    gout = (gy.float() + gs1 + 2.0 * y.float() * gs2).to(y.dtype)
+    return gout, gout.float().sum((0, 1, 2)).to(y.dtype), gsc, gsh
+
+
+def bn_act_grads_f64(y, s1, s2, scale, mask, fac, g, n, keep, eps=1e-5):
+    """The backward in f64 from the compute-dtype g' and round(g' mul) that
+    the kernels and the eager chain both form: the sums, the per-channel
+    gradients and the cotangent unrounded. (cotangent, d scale, d shift)."""
+    import torch
+
+    from wsl4mis_torch.ops import bn_act as ba
+
+    dims = (0, 1, 2)
+    gp = ba.act_grad_plain(g, y, mask, fac, keep)
+    gy = (gp * fac[3].to(y.dtype)).double()
+    gpd, yd = gp.double(), y.double()
+    g1, g2 = gpd.sum(dims), (gpd * yd).sum(dims)
+    mean = s1.double() / n
+    vun = s2.double() / n - mean * mean
+    r = (vun.clamp(min=0) + eps).rsqrt()
+    mul = scale.double() * r
+    gmul = g2 - g1 * mean
+    gvar = torch.where(vun >= 0, -0.5 * gmul * scale.double() * r ** 3,
+                       torch.zeros_like(r))
+    gmean = -g1 * mul - 2 * gvar * mean
+    return gy + gmean / n + 2 * yd * (gvar / n), gmul * r, g1
+
+
+def check_bn_act(name, c, h, drop, dtype_name, n, timed, dev="cuda",
+                 eval_only=False, repeat=False):
+    """The fused layer's kernels (ops.bn_act) at one shape (n, h, h, c)
+    against their plain versions. Forward (train mode with the dropout at
+    `drop`, and eval mode): the activation, the keep mask, the saved
+    per-channel values and the updated running statistics bit-equal to the
+    plain version, which is the eager chain op for op. Train backward: the
+    conv-output cotangent within BN_COT_ULP bf16 ulps (f32: BN_COT_REL of
+    the largest) of the f64 version and no farther from it than the eager
+    chain's (f32, where both sum in f32: under BN_COT_REL / 10 counts as
+    a tie), the bias gradient the rounded sum of the kernel's own
+    cotangent, the scale and shift gradients within BN_PARAM_REL of f64.
+    Eval backward (the running statistics constant, gs1 = gs2 = 0): the
+    cotangent bit-equal to the plain version's, the bias, scale and shift
+    gradients as in train mode. eval_only checks the eval forward alone
+    (the validation's); repeat also checks that a second call of each
+    kernel is bit-equal. If timed: each kernel's ms (CUDA events) and its
+    device ms alone (kernel_ms, a torch.profiler trace of 10 calls) beside
+    its plain version's ms and its bound (bytes), and the eager chain's
+    backward (autograd and the fold) beside the two backward kernels.
+    Returns records."""
+    import torch
+
+    from wsl4mis_torch.ops import bn_act as ba
+
+    a = bn_inputs(n, h, c, dtype_name, drop, dev)
+    y, u, g, cnt, keep = a["y"], a["u"], a["g"], a["n"], a["keep"]
+    vec = (a["scale"], a["shift"])
+    es = y.element_size()
+    db_tol = 2.0 ** -8 if dtype_name == "bfloat16" else 1e-5
+    recs = []
+
+    def record(kernel, ok, err, nbytes, fn_k, fn_p, extra, timed=timed):
+        rec = {"kernel": kernel, "layer": name, "dtype": dtype_name,
+               "shape": [n, h, h, c], "dropout": drop, **extra,
+               "max_abs_err": err, "ok": ok,
+               **bound(nbytes, 10.0 * y.numel(), dtype_name)}
+        if repeat:
+            rec["repeat_bit_equal"] = bit_equal(fn_k(), fn_k())
+        if timed:
+            rec["ms"] = time_ms(fn_k)
+            rec["kernel_ms"] = trace_ms(fn_k).get(kernel + "_kernel")
+            rec["plain_ms"] = time_ms(fn_p)
+            rec.update(library_times(None, dtype_name))
+        recs.append(rec)
+        print("kernel-check " + json.dumps(rec), flush=True)
+        expect(ok and rec.get("repeat_bit_equal", True),
+               f"{kernel} {name} {dtype_name} {rec['shape']}: {extra}, "
+               f"repeat {rec.get('repeat_bit_equal')}")
+
+    def fwd(fn, moments, stats):
+        mean, var = (a["mean"].clone(), a["var"].clone()) if stats else (
+            a["mean"], a["var"])
+        out, mask, fac = fn(y, moments, *vec, mean, var,
+                            u if moments else None, n=cnt, keep=keep,
+                            update=stats)
+        return out, mask, fac, mean, var
+
+    def db_rel_err(db, gout):  # db against the sum of the kernel's gout
+        own = gout.double().sum((0, 1, 2))
+        return float(((db.double() - own).abs() / gout.double().abs().sum(
+            (0, 1, 2)).clamp(min=1e-30)).max())
+
+    # eval mode: the running statistics
+    got = fwd(ba.bn_act_fwd, None, False)
+    want = fwd(ba.bn_act_fwd_plain, None, False)
+    same = {"out": bit_equal(got[0], want[0]),
+            "fac": bit_equal(got[2], want[2])}
+    record("bn_act_fwd", all(same.values()), abs_err(got[0], want[0]),
+           2 * y.numel() * es,
+           lambda: fwd(ba.bn_act_fwd, None, False)[0],
+           lambda: fwd(ba.bn_act_fwd_plain, None, False)[0],
+           {"role": "eval", "bit_equal": same}, timed=False)
+    if eval_only:
+        return recs
+    # eval mode's backward: d scale, d shift from f64 sums of the g' both
+    # versions form; the moments fed nothing (gs1 = gs2 = 0)
+    fac = got[2]
+    sums = ba.bn_act_sums(g, y, None, fac, a["scale"], n=1)
+    zero = torch.zeros_like(sums[2])
+    gout, db = ba.bn_act_bwd(g, y, None, fac, zero, zero)
+    want_g = ba.bn_act_bwd_plain(g, y, None, want[2], zero, zero)[0]
+    gp = ba.act_grad_plain(g, y, None, want[2], 1.0).double()
+    g1, g2 = gp.sum((0, 1, 2)), (gp * y.double()).sum((0, 1, 2))
+    r = (a["var"].double() + 1e-5).rsqrt()
+    param_err = max(rel_max(sums[0], (g2 - g1 * a["mean"].double()) * r),
+                    rel_max(sums[1], g1))
+    record("bn_act_sums", param_err <= BN_PARAM_REL,
+           abs_err(sums[1], g1), 2 * y.numel() * es,
+           lambda: ba.bn_act_sums(g, y, None, fac, a["scale"], n=1),
+           lambda: ba.bn_act_sums_plain(g, y, None, fac, a["scale"], n=1),
+           {"role": "eval", "param_rel_err": param_err}, timed=False)
+    db_err = db_rel_err(db, gout)
+    record("bn_act_bwd", bit_equal(gout, want_g) and db_err <= db_tol,
+           abs_err(gout, want_g), 3 * y.numel() * es,
+           lambda: ba.bn_act_bwd(g, y, None, fac, zero, zero),
+           lambda: ba.bn_act_bwd_plain(g, y, None, fac, zero, zero),
+           {"role": "eval", "bit_equal": bit_equal(gout, want_g),
+            "db_rel_err": db_err}, timed=False)
+    # train mode: the batch's moments, folded into the running statistics
+    moments = (a["s1"], a["s2"])
+    got = fwd(ba.bn_act_fwd, moments, True)
+    want = fwd(ba.bn_act_fwd_plain, moments, True)
+    parts = ("out", "mask", "fac", "mean", "var")
+    same = {k: (got[i] is None and want[i] is None)
+            or bit_equal(got[i], want[i]) for i, k in enumerate(parts)}
+    mbytes = (4 + 1) * y.numel() if drop else 0
+    record("bn_act_fwd", all(same.values()), abs_err(got[0], want[0]),
+           2 * y.numel() * es + mbytes,
+           lambda: fwd(ba.bn_act_fwd, moments, True)[0],
+           lambda: fwd(ba.bn_act_fwd_plain, moments, True)[0],
+           {"role": "train", "bit_equal": same})
+    _, mask, fac = got[:3]
+    # backward: pass 1, the moments' cotangents, pass 2
+    sums = ba.bn_act_sums(g, y, mask, fac, a["scale"], n=cnt, keep=keep)
+    gout, db = ba.bn_act_bwd(g, y, mask, fac, sums[2], sums[3], keep=keep)
+    want_g, want_scale, want_shift = bn_act_grads_f64(
+        y, a["s1"], a["s2"], a["scale"], mask, fac, g, cnt, keep)
+    eager = bn_act_eager_grads(y, a["s1"], a["s2"], *vec, u, g, cnt, keep)
+    if dtype_name == "bfloat16":
+        err, err_eager = ulp_err(gout, want_g), ulp_err(eager[0], want_g)
+        ok = err <= min(BN_COT_ULP, err_eager)
+    else:  # both sum in f32: under a tenth of the bound they tie
+        err, err_eager = rel_max(gout, want_g), rel_max(eager[0], want_g)
+        ok = err <= min(BN_COT_REL, max(err_eager, BN_COT_REL / 10))
+    db_err = db_rel_err(db, gout)
+    param_err = max(rel_max(sums[0], want_scale), rel_max(sums[1], want_shift))
+    param_eager = max(rel_max(eager[2], want_scale),
+                      rel_max(eager[3], want_shift))
+    mread = y.numel() if drop else 0
+    record("bn_act_sums", param_err <= BN_PARAM_REL,
+           max(abs_err(sums[0], want_scale), abs_err(sums[1], want_shift)),
+           2 * y.numel() * es + mread,
+           lambda: ba.bn_act_sums(g, y, mask, fac, a["scale"], n=cnt,
+                                  keep=keep),
+           lambda: ba.bn_act_sums_plain(g, y, mask, fac, a["scale"], n=cnt,
+                                        keep=keep),
+           {"role": "train", "param_rel_err": param_err,
+            "param_rel_err_eager": param_eager})
+
+    def eager_bwd():
+        return bn_act_eager_grads(y, a["s1"], a["s2"], *vec, u, g, cnt,
+                                  keep)
+
+    record("bn_act_bwd", ok and db_err <= db_tol, abs_err(gout, want_g),
+           3 * y.numel() * es + mread,
+           lambda: ba.bn_act_bwd(g, y, mask, fac, sums[2], sums[3],
+                                 keep=keep),
+           lambda: ba.bn_act_bwd_plain(g, y, mask, fac, sums[2], sums[3],
+                                       keep=keep),
+           {"role": "train", "err": err, "err_eager": err_eager,
+            "err_unit": "ulp" if dtype_name == "bfloat16" else "rel",
+            "db_rel_err": db_err,
+            **({"eager_fwd_bwd_ms": time_ms(eager_bwd)} if timed else {})})
+    return recs
+
+
 def gcrf_work(b, h, w, c, radius, nf_splits):
     """(bytes, f32 operations) of one GatedCRF contraction: probs and feats
     read once, prod written once; per pixel and non-centre offset, per
@@ -892,9 +1151,10 @@ def check_gated_crf(b, h, w, radius, kernels_desc, timed, seed, role,
 
 def _counters():
     """The launch counters of every kernel wrapper of the port."""
-    from wsl4mis_torch.ops import augment, conv3x3, gated_crf, maxpool
+    from wsl4mis_torch.ops import augment, bn_act, conv3x3, gated_crf, maxpool
 
-    return [m.launches for m in (conv3x3, augment, maxpool, gated_crf)]
+    return [m.launches for m in (conv3x3, augment, maxpool, gated_crf,
+                                 bn_act)]
 
 
 def launch_counts():
@@ -938,21 +1198,28 @@ def _unet_sizes(model_name):
 
 
 def eval_counts(model_name):
-    """Launches of one eval-mode forward: every conv a fwd launch, the
-    encoder's four pools (ScribbleVC, PNet2D and EfficientNet-UNet: none,
-    their convolutions and pools are cuDNN's and PyTorch's, as they are
-    XLA's in the JAX package)."""
+    """Launches of one eval-mode forward without autograd: every conv a fwd
+    launch, every ConvBlock conv's BN layer a fused forward, the encoder's
+    four pools (ScribbleVC, PNet2D and EfficientNet-UNet: none, their
+    convolutions and pools are cuDNN's and PyTorch's, as they are XLA's in
+    the JAX package)."""
     if model_name not in UNET_HEADS:
         return {}
-    return {"conv3x3_fwd": _unet_sizes(model_name)[2], "maxpool_fwd": 4}
+    _, blocks, convs = _unet_sizes(model_name)
+    return {"conv3x3_fwd": convs, "maxpool_fwd": 4, "bn_act_fwd": blocks}
+
+
+NO_BN_ACT = {"bn_act_fwd": 0, "bn_act_sums": 0, "bn_act_bwd": 0}
 
 
 def per_step_counts(model_name, method=None, host_aug=False):
     """Expected launches per training step. A train-mode forward: every
     ConvBlock conv a stats launch, each head a fwd launch, the encoder's
-    four pools; a backward: every conv but the stem a dgrad (fwd) launch,
-    every conv a wgrad launch, four pool backwards; an eval forward:
-    eval_counts. One augment launch (s2l: one of its S2L variant, which
+    four pools, every ConvBlock conv's fused BN layer forward (bn_act); a
+    backward: every conv but the stem a dgrad (fwd) launch, every conv a
+    wgrad launch, four pool backwards, every fused BN layer's two backward
+    passes; an eval forward: eval_counts. One augment launch (s2l: one of
+    its S2L variant, which
     launches no fill-flag kernel; none with host augmentation, whose
     batches arrive augmented), and one GatedCRF contraction for
     pce_gatedcrf (its backward is an elementwise scale, no launch).
@@ -962,12 +1229,12 @@ def per_step_counts(model_name, method=None, host_aug=False):
     if model_name == "scribblevc":
         return {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
                 "augment": 1, "augment_s2l": 0, "maxpool_fwd": 0,
-                "maxpool_bwd": 0, "gated_crf": 1}
+                "maxpool_bwd": 0, "gated_crf": 1, **NO_BN_ACT}
     if model_name not in UNET_HEADS:
         return {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
                 "augment": int(not host_aug), "augment_s2l": 0,
                 "maxpool_fwd": 0, "maxpool_bwd": 0,
-                "gated_crf": int(method == "pce_gatedcrf")}
+                "gated_crf": int(method == "pce_gatedcrf"), **NO_BN_ACT}
     fwd, bwd, evl = STEP_PASSES.get(method, (1, 1, 0))
     heads, blocks, convs = _unet_sizes(model_name)
     ev = eval_counts(model_name)
@@ -978,7 +1245,9 @@ def per_step_counts(model_name, method=None, host_aug=False):
             "augment": int(method != "s2l" and not host_aug),
             "augment_s2l": int(method == "s2l"),
             "maxpool_fwd": 4 * fwd + ev["maxpool_fwd"] * evl,
-            "maxpool_bwd": 4 * bwd, "gated_crf": int(method == "pce_gatedcrf")}
+            "maxpool_bwd": 4 * bwd, "gated_crf": int(method == "pce_gatedcrf"),
+            "bn_act_fwd": blocks * fwd + ev["bn_act_fwd"] * evl,
+            "bn_act_sums": blocks * bwd, "bn_act_bwd": blocks * bwd}
 
 
 def refresh_counts(model_name, n_slices):
@@ -3541,9 +3810,9 @@ def surface_single_volume(unet_path, seed, dev="cuda", hw=HW, widths=None,
 def surface_apply_model(seed, dev="cuda", hw=HW, batch=N, widths=None):
     """(b) models.init_model / apply_model on a bf16 UNet: apply_model with
     init_model's variables, on another module, bit for bit the first
-    module's own forward, eval (K1, K6 forward: eval_counts) and train
-    (K2: the updated batch_stats and the outputs, from the same dropout
-    draws)."""
+    module's own forward, eval (K1, K6 forward, the fused BN layers:
+    eval_counts) and train (K2 and the fused BN layers: the updated
+    batch_stats and the outputs, from the same dropout draws)."""
     import numpy as np
     import torch
 
@@ -3591,7 +3860,8 @@ def surface_apply_model(seed, dev="cuda", hw=HW, batch=N, widths=None):
            "eval_expected": eval_counts("unet"),
            "train_launches": train_launches,
            "train_expected": {"conv3x3_fwd_stats": blocks,
-                              "conv3x3_fwd": heads, "maxpool_fwd": 4}}
+                              "conv3x3_fwd": heads, "maxpool_fwd": 4,
+                              "bn_act_fwd": blocks}}
     expect(rec["eval_bit_equal"] and rec["train_bit_equal"]
            and stats_equal, f"apply_model against the module: {rec}")
     expect(eval_launches == rec["eval_expected"]
@@ -3814,7 +4084,10 @@ TRACE_KERNELS = (
     ("augment_s2l", r"augment_s2l_kernel"),
     ("maxpool_fwd", r"maxpool_fwd_kernel"),
     ("maxpool_bwd", r"maxpool_bwd_kernel"),
-    ("gated_crf", r"gated_crf_kernel"))
+    ("gated_crf", r"gated_crf_kernel"),
+    ("bn_act_fwd", r"bn_act_fwd_kernel"),
+    ("bn_act_sums", r"bn_act_sums_kernel"),
+    ("bn_act_bwd", r"bn_act_bwd_kernel"))
 
 
 def trace_launches(events):
@@ -4817,6 +5090,11 @@ def summarize(recs, launches, f32_launches):
                       "float32"),
         "maxpool_fwd": (SRC_POOL, f"{PALLAS_POOL}:70", "bfloat16"),
         "maxpool_bwd": (SRC_POOL, f"{PALLAS_POOL}:92", "bfloat16"),
+        # no Pallas kernel: the JAX package leaves BN, LeakyReLU and the
+        # dropout to XLA's fusion
+        "bn_act_fwd": (SRC_BN, BN_REPLACES, "bfloat16"),
+        "bn_act_sums": (SRC_BN, BN_REPLACES, "bfloat16"),
+        "bn_act_bwd": (SRC_BN, BN_REPLACES, "bfloat16"),
     }
     entries = [(name, name, dtype, launches[name])
                for name, (_, _, dtype) in rows.items()]
@@ -4963,11 +5241,13 @@ def wrapper_calls():
     the augment wrapper at the fs24 step's
     batch, its S2L variant at the s2l step's and the GatedCRF contraction
     at the pce_gatedcrf step's, their path shapes (fewer calls, so that
-    the launch queue never fills)."""
+    the launch queue never fills); the fused BN layer's three on the
+    deepest level's bf16 6x16x16x64, with dropout."""
     import torch
 
     from wsl4mis_torch.data.augment_device import sample_policy
     from wsl4mis_torch.ops import augment as ag
+    from wsl4mis_torch.ops import bn_act as ba
     from wsl4mis_torch.ops import conv3x3 as cv
     from wsl4mis_torch.ops import gated_crf as gc
     from wsl4mis_torch.ops import maxpool as mp
@@ -4985,6 +5265,12 @@ def wrapper_calls():
     probs, image = gcrf_inputs(DMPLS_N, HW, HW, 7)
     desc = gc.DEFAULT_KERNELS_DESC
     planes, weights, nf, xy = gc.split_features(image, desc, HW, HW)
+    bn = bn_inputs(6, 16, 64, "bfloat16", 0.3)
+    vec = (bn["scale"], bn["shift"], bn["mean"], bn["var"])
+    _, mask, fac = ba.bn_act_fwd(bn["y"], (bn["s1"], bn["s2"]), *vec,
+                                 bn["u"], n=bn["n"], keep=bn["keep"])
+    sums = ba.bn_act_sums(bn["g"], bn["y"], mask, fac, bn["scale"],
+                          n=bn["n"], keep=bn["keep"])
     return [
         ("conv3x3_fwd", lambda: cv.conv3x3_fwd(x, w, b), 300),
         ("conv3x3_fwd_stats", lambda: cv.conv3x3_fwd_stats(x, w, b), 300),
@@ -4996,6 +5282,15 @@ def wrapper_calls():
          100),
         ("gated_crf", lambda: gc.gated_crf_products(
             probs, planes, GCRF_RADIUS, weights, nf, xy), 100),
+        ("bn_act_fwd", lambda: ba.bn_act_fwd(
+            bn["y"], (bn["s1"], bn["s2"]), *vec, bn["u"], n=bn["n"],
+            keep=bn["keep"], update=True), 300),
+        ("bn_act_sums", lambda: ba.bn_act_sums(
+            bn["g"], bn["y"], mask, fac, bn["scale"], n=bn["n"],
+            keep=bn["keep"]), 300),
+        ("bn_act_bwd", lambda: ba.bn_act_bwd(
+            bn["g"], bn["y"], mask, fac, sums[2], sums[3], keep=bn["keep"]),
+         300),
     ]
 
 
@@ -5020,7 +5315,8 @@ def wrapper_host_us(calls):
 def check_sync_free(calls, names=("conv3x3_fwd", "conv3x3_fwd_stats",
                                   "conv3x3_wgrad", "maxpool_fwd",
                                   "maxpool_bwd", "augment", "augment_s2l",
-                                  "gated_crf")):
+                                  "gated_crf", "bn_act_fwd", "bn_act_sums",
+                                  "bn_act_bwd")):
     """One call of each named wrapper under torch.cuda.set_sync_debug_mode(
     "error"), in which any host-device synchronization raises."""
     import torch
@@ -5170,6 +5466,19 @@ def main(argv=None):
                 for n in (EVAL_N, REFRESH_N):
                     recs += check_pool(name, c, h, dtype, n, ties,
                                        timed=False, backward=False)
+        seen = set()
+        for name, c, h, drop in unet_bn_layers():
+            recs += check_bn_act(name, c, h, drop, dtype, N, timed=True,
+                                 repeat=True)
+            if (c, h, drop) in seen:
+                continue
+            seen.add((c, h, drop))
+            for n in (MS_N, DMPLS_N):
+                recs += check_bn_act(name, c, h, drop, dtype, n,
+                                     timed=False)
+            for n in (EVAL_N, REFRESH_N):
+                recs += check_bn_act(name, c, h, drop, dtype, n,
+                                     timed=False, eval_only=True)
     calls = wrapper_calls()
     host_us = wrapper_host_us(calls)
     print("wrapper-host-us " + json.dumps(host_us), flush=True)

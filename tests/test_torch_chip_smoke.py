@@ -43,6 +43,7 @@ from wsl4mis_torch.engine.state import TrainState  # noqa: E402
 from wsl4mis_torch.models import net_factory  # noqa: E402
 from wsl4mis_torch.models.unet import Conv3x3  # noqa: E402
 from wsl4mis_torch.ops import augment as taug  # noqa: E402
+from wsl4mis_torch.ops import bn_act as tbn  # noqa: E402
 from wsl4mis_torch.ops import conv3x3 as tconv  # noqa: E402
 from wsl4mis_torch.ops import gated_crf as tgcrf  # noqa: E402
 from wsl4mis_torch.ops import maxpool as tpool  # noqa: E402
@@ -107,10 +108,13 @@ def _count_wrapper_calls(monkeypatch, calls):
     """Patch every kernel wrapper to count its calls into `calls` (on the
     card each call is one launch of its kernel)."""
     def counted(name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kw):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kw)
         return wrapper
+
+    for name in ("bn_act_fwd", "bn_act_sums", "bn_act_bwd"):
+        monkeypatch.setattr(tbn, name, counted(name, getattr(tbn, name)))
 
     for name in ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad"):
         monkeypatch.setattr(tconv, name, counted(name, getattr(tconv, name)))
@@ -374,6 +378,12 @@ def test_summary_lists_every_kernel_with_every_key():
             library_ms=None, library_tf32_ms=None, shape=step),
         rec("conv3x3_wgrad", "float32", 0.3, conv="head",
             library_tf32_ms=0.25, shape=step),
+        rec("bn_act_fwd", "bfloat16", 0.0, layer="enc0.bn1", role="train",
+            library_ms=None),
+        rec("bn_act_sums", "bfloat16", 0.1, layer="enc0.bn1",
+            library_ms=None),
+        rec("bn_act_bwd", "bfloat16", 0.2, layer="enc0.bn1",
+            library_ms=None),
     ]
     launches = {k: 0 for d in chip_smoke._counters() for k in d}
     f32_launches = {k: 7 for k in launches}
@@ -381,7 +391,7 @@ def test_summary_lists_every_kernel_with_every_key():
     convs = ("conv3x3_fwd", "conv3x3_fwd_stats", "conv3x3_wgrad")
     assert sorted(r["name"] for r in rows) == sorted(
         list(launches) + [f"{k}_f32" for k in convs])
-    assert len(rows) == 11
+    assert len(rows) == 14
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for r in rows:
@@ -392,9 +402,11 @@ def test_summary_lists_every_kernel_with_every_key():
         assert os.path.isfile(os.path.join(REPO, r["source"]))
         path, line = r["replaces"].split(":")
         with open(os.path.join(REPO, path)) as f:
-            # a Pallas kernel; S2L's variant replaces an XLA function
+            # a Pallas kernel; S2L's variant replaces an XLA function, the
+            # fused BN layer the BN that XLA fuses with its neighbours
             want = ("def augment_batch_s2l(" if r["name"] == "augment_s2l"
-                    else "_kernel(")
+                    else "class FusedBatchNorm(" if r["name"].startswith(
+                        "bn_act") else "_kernel(")
             assert want in f.readlines()[int(line) - 1]
         assert r["max_abs_err"] < 0.9 and r["ms"] == 2.0
     by_name = {r["name"]: r for r in rows}
@@ -525,6 +537,19 @@ TRACE_NAMES = {
     "gated_crf": (
         "void (anonymous namespace)::gated_crf_kernel<4, 1, 1, 5>(int)",
         "_ZN12_GLOBAL__N_116gated_crf_kernelILi4ELi8ELi4ELin1EEEvPKf"),
+    "bn_act_fwd": (
+        "void (anonymous namespace)::bn_act_fwd_kernel<__nv_bfloat16, 8, "
+        "true, true>((anonymous namespace)::FwdArgs)",
+        "_ZN12_GLOBAL__N_117bn_act_fwd_kernelIfLi4ELb0ELb0EEEvNS_7FwdArgsE"),
+    "bn_act_sums": (
+        "void (anonymous namespace)::bn_act_sums_kernel<float, 4, false>("
+        "(anonymous namespace)::BwdArgs)",
+        "_ZN12_GLOBAL__N_118bn_act_sums_kernelI13__nv_bfloat16Li8ELb1EEEvNS"
+        "_7BwdArgsE"),
+    "bn_act_bwd": (
+        "void (anonymous namespace)::bn_act_bwd_kernel<__nv_bfloat16, 8, "
+        "true>((anonymous namespace)::BwdArgs)",
+        "_ZN12_GLOBAL__N_117bn_act_bwd_kernelIfLi1ELb0EEEvNS_7BwdArgsE"),
 }
 TRACE_OTHERS = (  # launches no counter counts
     "void (anonymous namespace)::augment_fill_kernel<true>(int)",
@@ -789,7 +814,10 @@ def test_summary_leaves_out_the_ragged_shapes():
             ("augment_s2l", "float32+int32+float32x4", {"case": "path"}),
             ("gated_crf", "float32", {"role": "path"}),
             ("maxpool_fwd", "bfloat16", {"pool": "pool0"}),
-            ("maxpool_bwd", "bfloat16", {"pool": "pool0"})):
+            ("maxpool_bwd", "bfloat16", {"pool": "pool0"}),
+            ("bn_act_fwd", "bfloat16", {"layer": "enc0.bn1"}),
+            ("bn_act_sums", "bfloat16", {"layer": "enc0.bn1"}),
+            ("bn_act_bwd", "bfloat16", {"layer": "enc0.bn1"})):
         tf32 = {"library_tf32_ms": 1.0} if dtype == "float32" else {}
         recs.append({"kernel": kernel, "dtype": dtype, "max_abs_err": 0.1,
                      **base, **tf32, **extra})
@@ -799,7 +827,7 @@ def test_summary_leaves_out_the_ragged_shapes():
                          **base, **tf32, "ms": 100.0})
     launches = {k: 1 for d in chip_smoke._counters() for k in d}
     rows = chip_smoke.summarize(recs, launches, launches)
-    assert len(rows) == 11
+    assert len(rows) == 14
     for row in rows:
         assert row["max_abs_err"] == 0.1 and row["ms"] == 1.0
 
@@ -1174,10 +1202,12 @@ def test_zoo_counts_follow_the_model_shape():
     assert chip_smoke.fwd_bwd_counts("unet_ds") == {
         "conv3x3_fwd_stats": 18, "conv3x3_fwd": 4 + 21, "conv3x3_wgrad": 22,
         "augment": 0, "augment_s2l": 0, "maxpool_fwd": 4, "maxpool_bwd": 4,
-        "gated_crf": 0}
+        "gated_crf": 0, "bn_act_fwd": 18, "bn_act_sums": 18,
+        "bn_act_bwd": 18}
     c3h = chip_smoke.fwd_bwd_counts("unet_cct_3h")
     assert (c3h["conv3x3_fwd_stats"], c3h["conv3x3_fwd"],
-            c3h["conv3x3_wgrad"]) == (34, 3 + 36, 37)
+            c3h["conv3x3_wgrad"], c3h["bn_act_fwd"], c3h["bn_act_bwd"]) == (
+                34, 3 + 36, 37, 34, 34)
     assert chip_smoke.fwd_bwd_counts("unet_urds") == \
         chip_smoke.fwd_bwd_counts("unet_ds")
     for name in ("pnet", "efficient_unet"):
@@ -1333,13 +1363,15 @@ def test_surface_phase_runs_on_the_cpu(narrow_zoo, tmp_path, capsys):
     assert sv["per_volume_diff"] == 0.0 and sv["mean_diff"] == 0.0
     assert sv["f32_agree"] == 1.0
     # 10 slices: 16 with the bucket's padding, two 8-slice chunks a volume
-    assert sv["launches"] == {"conv3x3_fwd": 19 * 4, "maxpool_fwd": 4 * 4}
+    assert sv["launches"] == {"conv3x3_fwd": 19 * 4, "maxpool_fwd": 4 * 4,
+                              "bn_act_fwd": 18 * 4}
     am = out["apply_model"]
     assert am["eval_bit_equal"] and am["train_bit_equal"]
     assert am["batch_stats_equal"] and am["batch_stats_leaves"] == 36
     assert am["eval_launches"] == am["eval_expected"]
     assert am["train_launches"] == {"conv3x3_fwd_stats": 18,
-                                    "conv3x3_fwd": 1, "maxpool_fwd": 4}
+                                    "conv3x3_fwd": 1, "maxpool_fwd": 4,
+                                    "bn_act_fwd": 18}
     assert [r["model"] for r in out["vnet"]] == [
         f"vnet {n}" for n in chip_smoke.VNET_NORMS]
     assert all(r["ref_err"] == 0 for r in out["vnet"])

@@ -58,6 +58,11 @@ class FusedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def updating(self) -> bool:
+        """Whether a train-mode forward folds its batch into the running
+        statistics."""
+        return self.update_stats and not getattr(_frozen, "on", False)
+
     def statistics(self, n: int, train: bool, moments=None):
         """(mean, var) to normalize by: the running statistics in eval
         mode; in train mode those of the batch from its moments (sum x, sum
@@ -69,7 +74,7 @@ class FusedBatchNorm(nn.Module):
         n = parallel.global_batch(n)  # every rank holds n values
         mean, mean2 = s1 / n, s2 / n
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        if self.update_stats and not getattr(_frozen, "on", False):
+        if self.updating():
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

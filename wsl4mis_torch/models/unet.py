@@ -7,9 +7,11 @@ UNet, UNet_CCT, UNet_CCT_3H, UNet_DS and UNet_URDS.
   (``ops.maxpool``, on the NHWC tensor as it is); the decoder
   upsamples with a 2x2 stride-2 transposed conv, concatenates the skip
   and runs a dropout-free ConvBlock; a 3x3 head gives the logits.
-* Every 3x3 conv (19 in a UNet) goes through ``ops.conv3x3``; in train
-  mode a ConvBlock's convs are ``conv3x3_stats`` feeding FusedBatchNorm
-  their output moments, so BN takes no separate statistics pass.
+* Every 3x3 conv (19 in a UNet) goes through ``ops.conv3x3``. A
+  ConvBlock layer's conv -> BN -> LeakyReLU (-> dropout) runs fused
+  (``ops.bn_act``: kernels on a card, their plain versions on the CPU);
+  in train mode its conv hands BN its output moments, so BN takes no
+  separate statistics pass.
 * The transposed conv is one matmul plus a pixel interleave, in the form
   of the JAX package's ``_MatmulConvTranspose``: output sub-pixel (a, b)
   takes tap K[1-a, 1-b] (lax.conv_transpose's mirrored kernel).
@@ -44,11 +46,11 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import parallel
-from ..ops.conv3x3 import conv3x3, conv3x3_stats
+from ..ops import bn_act
+from ..ops.conv3x3 import conv3x3
 from ..ops.maxpool import max_pool_2x2
 from .layers import upsample_nearest
 from .norm import FusedBatchNorm
@@ -72,11 +74,19 @@ class Conv3x3(nn.Module):
         self.kernel = _uniform((3, 3, in_ch, out_ch), bound, generator)
         self.bias = _uniform((out_ch,), bound, generator)
 
-    def forward(self, x, stats: bool = False):
-        x = x.to(self.dtype).contiguous()
-        k = self.kernel.to(self.dtype)
-        b = self.bias.to(self.dtype)
-        return conv3x3_stats(x, k, b) if stats else conv3x3(x, k, b)
+    def operands(self, x):
+        """x (contiguous), the kernel and the bias in the compute dtype."""
+        return (x.to(self.dtype).contiguous(), self.kernel.to(self.dtype),
+                self.bias.to(self.dtype))
+
+    def forward(self, x, bn=None, train: bool = False, u=None,
+                keep: float = 1.0):
+        """The conv; given bn (a ConvBlock's), the fused layer conv -> BN ->
+        LeakyReLU(0.01) (-> dropout from u), so that a forward hook sees
+        the layer's output under this module's name."""
+        if bn is None:
+            return conv3x3(*self.operands(x))
+        return bn_act.conv_bn_act(*self.operands(x), bn, train, u, keep)
 
 
 class ConvTranspose2x2(nn.Module):
@@ -128,23 +138,15 @@ class ConvBlock(nn.Module):
         self.conv2 = Conv3x3(out_ch, out_ch, dtype, generator)
         self.bn2 = FusedBatchNorm(out_ch)
 
-    def _conv_bn(self, conv, bn, x, train):
-        if train:
-            y, s1, s2 = conv(x, stats=True)
-            y = bn(y, train=True, moments=(s1, s2))
-        else:
-            y = bn(conv(x), train=False)
-        return F.leaky_relu(y, 0.01)
-
     def forward(self, x, train: bool, generator=None):
-        x = self._conv_bn(self.conv1, self.bn1, x, train)
+        u = None  # the dropout's uniform draw, after the first layer
         if self.dropout_p > 0 and train:
-            keep = 1.0 - self.dropout_p
-            shape = (parallel.global_batch(x.shape[0]), *x.shape[1:])
-            mask = parallel.local_rows(torch.rand(
-                shape, generator=generator, device=x.device)) < keep
-            x = x * (mask.to(self.dtype) * (1.0 / keep))
-        return self._conv_bn(self.conv2, self.bn2, x, train)
+            shape = (parallel.global_batch(x.shape[0]), *x.shape[1:3],
+                     self.bn1.scale.shape[0])
+            u = parallel.local_rows(torch.rand(
+                shape, generator=generator, device=x.device))
+        x = self.conv1(x, self.bn1, train, u, 1.0 - self.dropout_p)
+        return self.conv2(x, self.bn2, train)
 
 
 class Encoder(nn.Module):

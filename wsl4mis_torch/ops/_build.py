@@ -35,6 +35,7 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # name -> (source file, extra nvcc flags, {function: argtypes})
 LIBRARIES = {
@@ -66,6 +67,21 @@ LIBRARIES = {
         {
             "maxpool_fwd": [_P, _P, _I, _I, _I, _I, _I, _P],
             "maxpool_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        },
+    ),
+    # -fmad=false: the forward rounds each multiply and add as the eager
+    # chain's separate kernels do (see the source's note)
+    "bn_act": (
+        "bn_act.cu",
+        ["-fmad=false"],
+        {
+            "bn_act_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P],
+            "bn_act_blocks": [_I, _I, _I],
+            "bn_act_sums": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+                            _P],
+            "bn_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                           _I, _P],
         },
     ),
     # weights, xy sigmas and desc_of are host arrays (float[nd], float[nd],

@@ -176,18 +176,21 @@ def conv3x3_wgrad(x, g):
 # ---- autograd --------------------------------------------------------------
 
 
-def _conv_bwd(ctx, x, w, g):
+def _conv_bwd(ctx, x, w, g, db=None):
     """(dx, dw, db) for y = conv(x, w) + b; mirrors _conv_bwd_core
     (banded_conv_pallas.py:629-643). dx is skipped where x needs none
-    (the stem)."""
+    (the stem). db, the sum of g, is reduced here unless the caller's
+    kernel already summed it (``bn_act``)."""
     g = g.contiguous()
-    dx = dw = db = None
+    dx = dw = None
     if ctx.needs_input_grad[0]:
         w_rot = w.flip(0, 1).transpose(2, 3).to(g.dtype).contiguous()
         dx = conv3x3_fwd(g, w_rot).to(x.dtype)
     if ctx.needs_input_grad[1]:
         dw = conv3x3_wgrad(x, g.to(x.dtype)).to(w.dtype)
-    if ctx.needs_input_grad[2]:
+    if not ctx.needs_input_grad[2]:
+        db = None
+    elif db is None:
         db = g.float().sum((0, 1, 2)).to(ctx.bias_dtype)
     return dx, dw, db
 
